@@ -6,7 +6,9 @@ from it (and no JAX).  Its hand-written CUDA kernels (``csrc/``) replace the
 JAX package's Pallas TPU kernels on the main path; each has a plain PyTorch
 version beside it, which runs when the tensors are on the CPU.
 
-Main entry point: :func:`ensemble_multi_scenario_step`.
+Main entry points: :func:`ensemble_multi_scenario_step` (the annual
+7-SSP step) and :func:`run_dedup_campaign` (the native-monthly campaign,
+each unique model fitted once).
 """
 
 from bayesian_ensembling_tpu_torch import _build
@@ -20,12 +22,23 @@ from bayesian_ensembling_tpu_torch.ops.gp import (
     posterior_marginals_batch,
     prepare_gp_inputs,
 )
+from bayesian_ensembling_tpu_torch.ops.linalg_blocked import nlml_terms_blocked
 from bayesian_ensembling_tpu_torch.ops.linalg_cuda import (
+    cholesky_batched,
     cholesky_solve_fused,
+    linalg_path,
     nlml_terms,
     tri_inv_batched,
 )
+from bayesian_ensembling_tpu_torch.parallel.campaign import (
+    DedupCampaign,
+    make_sharded_dedup_campaign,
+    pack_dedup_campaign,
+    pad_unique_axis,
+    run_dedup_campaign,
+)
 from bayesian_ensembling_tpu_torch.parallel.step import (
+    chunked_marginals,
     emulate_marginals,
     ensemble_multi_scenario_step,
     ensemble_scenario_step,
@@ -35,7 +48,10 @@ from bayesian_ensembling_tpu_torch.parallel.step import (
 
 __all__ = [
     "BatchedGPParams",
+    "DedupCampaign",
+    "cholesky_batched",
     "cholesky_solve_fused",
+    "chunked_marginals",
     "dba_batch",
     "dba_update_batch",
     "emulate_marginals",
@@ -46,12 +62,19 @@ __all__ = [
     "gp_params_to_numpy",
     "init_params",
     "launch_counts",
+    "linalg_path",
+    "make_sharded_dedup_campaign",
     "multi_scenario_tail",
     "nlml_terms",
+    "nlml_terms_blocked",
+    "pack_dedup_campaign",
     "pad_models",
+    "pad_unique_axis",
     "posterior_marginals_batch",
     "prepare_gp_inputs",
     "reset_launch_counts",
+    "route_counts",
+    "run_dedup_campaign",
     "tri_inv_batched",
 ]
 
@@ -61,7 +84,13 @@ def launch_counts() -> dict[str, int]:
     return dict(_build.LAUNCHES)
 
 
+def route_counts() -> dict[str, int]:
+    """Batched-linalg calls since the last reset, by the route they took."""
+    return dict(_build.ROUTES)
+
+
 def reset_launch_counts() -> None:
-    """Set every kernel's launch count to 0."""
-    for name in _build.LAUNCHES:
-        _build.LAUNCHES[name] = 0
+    """Set every kernel's launch count and every route count to 0."""
+    for counter in (_build.LAUNCHES, _build.ROUTES):
+        for name in counter:
+            counter[name] = 0

@@ -1,8 +1,9 @@
 """Build the hand-written CUDA kernels in ``csrc/`` and load them with ctypes.
 
-All ``csrc/*.cu`` files are compiled by ``nvcc`` into one shared library
-with a plain C interface, at first use, into ``build/torch_kernels/`` at the
-repository root.  The library's name carries a hash of the sources and
+Each ``csrc/*.cu`` file is compiled by its own ``nvcc`` process, all started
+together, and the objects are linked into one shared library with a plain C
+interface, at first use, into ``build/torch_kernels/`` at the repository
+root.  The library's name carries a hash of the sources and
 flags, so an edited source is rebuilt and a stale build is never loaded.
 Nothing here runs at import time: the CPU-only test environment imports
 every module but never builds.
@@ -29,8 +30,12 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
+# Shared memory one block may opt into on an H100 (227 KB).  The kernels'
+# size gates (ops/linalg_cuda.py, ops/dtw_cuda.py) are computed from it, so a
+# route is chosen by shape and dtype alone, the same on every device.
+SMEM_BYTES = 232_448
 
 # C entry points: name -> (number of pointer arguments, number of int arguments).
 # Every entry point ends with the stream pointer.
@@ -41,11 +46,20 @@ _SIGNATURES = {
     "bet_chol_solve_f64": (6, 2),
     "bet_tri_inv_f32": (2, 2),
     "bet_tri_inv_f64": (2, 2),
+    "bet_chol_f32": (2, 2),
+    "bet_chol_f64": (2, 2),
+    "bet_dba_update_split_f32": (5, 2),
+    "bet_dba_update_split_f64": (5, 2),
 }
 
 # Launches per kernel since the last reset: each wrapper adds one where it
 # launches its kernel, and nowhere else.
-LAUNCHES = {"dba_update": 0, "chol_solve": 0, "tri_inv": 0}
+LAUNCHES = {"dba_update": 0, "dba_update_split": 0, "chol_solve": 0, "tri_inv": 0, "chol": 0}
+
+# Batched-linalg calls since the last reset, by the route they took: the
+# kernels or torch.linalg (one per routed call in ops/linalg_cuda.py), or
+# the recursive blocked NLML on the kernels (one per evaluation).
+ROUTES = {"kernel": 0, "blocked": 0, "library": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -71,6 +85,35 @@ def _library_path(sources: list[Path]) -> Path:
     return BUILD_DIR / f"libbet_torch_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _compile(sources: list[Path], so: Path) -> str:
+    """One ``nvcc -c`` per source, all at once, then one link; returns the
+    compilers' output (``-Xptxas=-v``: registers and shared memory)."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{so.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{p.stem}.o" for p in sources]
+    cmds = [[_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(p)] for p, o in zip(sources, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    tmp = so.with_name(f"{tag}.so.tmp")
+    link = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o", str(tmp),
+            *map(str, objs)]
+    try:
+        for cmd, proc, out in zip(cmds, procs, outs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}")
+        proc = subprocess.run(link, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc link failed ({proc.returncode}): {' '.join(link)}\n{proc.stdout}{proc.stderr}"
+            )
+        os.replace(tmp, so)
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
+    return "".join(outs)
+
+
 def library() -> ctypes.CDLL:
     """The kernels' shared library, compiled on first call if needed."""
     global _lib
@@ -82,16 +125,7 @@ def library() -> ctypes.CDLL:
         t0 = time.perf_counter()
         log = ""
         if not so.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, cu)]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-                )
-            os.replace(tmp, so)
-            log = proc.stdout + proc.stderr
+            log = _compile(cu, so)
         lib = ctypes.CDLL(str(so))
         for name, (n_ptr, n_int) in _SIGNATURES.items():
             fn = getattr(lib, name)
@@ -114,6 +148,15 @@ def launch(kernel: str, symbol: str, *args) -> None:
         msg = lib.bet_error_string(rc).decode()
         raise RuntimeError(f"{symbol} launch failed: CUDA error {rc} ({msg}); arguments {args[-2:]}")
     LAUNCHES[kernel] += 1
+
+
+def largest_t(smem_bytes, t_max: int = 1 << 20) -> int:
+    """Largest T up to ``t_max`` whose launcher's shared memory,
+    ``smem_bytes(T)``, fits :data:`SMEM_BYTES`."""
+    t = 1
+    while t < t_max and smem_bytes(t + 1) <= SMEM_BYTES:
+        t += 1
+    return t
 
 
 def symbol_suffix(dtype: torch.dtype) -> str:

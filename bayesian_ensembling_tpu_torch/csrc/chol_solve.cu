@@ -17,17 +17,18 @@
 //  * One block of 512 threads per matrix; K lives in dynamic shared memory
 //    (109 KB at T=165 in f32, 219 KB in f64), with an odd leading dimension
 //    so column walks are free of bank conflicts.
-//  * Right-looking column loop.  Phase A scales column k by 1/sqrt(pivot)
-//    into a shared vector; phase B writes it back as column k of L, folds
-//    it into the forward-substitution accumulator, and applies the rank-1
-//    update to the trailing lower triangle.  z[k] and the log-det term are
-//    formed inside the loop, as in the TPU kernel; alpha follows in a
-//    column-oriented backward substitution (one barrier per step).
+//  * Right-looking column loop (chol_factorise.cuh, shared with chol.cu).
+//    Phase A scales column k by 1/sqrt(pivot) into a shared vector; phase B
+//    writes it back as column k of L, folds it into the forward-substitution
+//    accumulator, and applies the rank-1 update to the trailing lower
+//    triangle.  z[k] and the log-det term are formed inside the loop, as in
+//    the TPU kernel; alpha follows in a column-oriented backward
+//    substitution (one barrier per step).
 //  * A non-positive (or NaN) pivot yields NaN, which then propagates to the
 //    rest of the factor, z, alpha and logdet, as the TPU kernel does.
 //  * L is written to device memory with zeros above the diagonal, because
 //    the triangular inverse and the posterior read it.
-#include "common.cuh"
+#include "chol_factorise.cuh"
 
 namespace {
 
@@ -48,9 +49,6 @@ __global__ void __launch_bounds__(kThreads)
   __shared__ T zk_shared;
 
   const int tid = threadIdx.x;
-  const int tx = tid & 31;
-  const int ty = tid >> 5;
-  constexpr int kRows = kThreads / 32;
   const size_t mat0 = static_cast<size_t>(blockIdx.x) * t * t;
   const size_t vec0 = static_cast<size_t>(blockIdx.x) * t;
 
@@ -65,34 +63,15 @@ __global__ void __launch_bounds__(kThreads)
   T logdet = T(0);  // meaningful in thread 0
   __syncthreads();
 
-  for (int k = 0; k < t; ++k) {
-    // Phase A: pivot and column k of L.
-    const T d = a[k * ld + k];
-    const T lkk = d > T(0) ? sqrt(d) : bet::Num<T>::nan();
-    const T inv = T(1) / lkk;
-    for (int i = k + 1 + tid; i < t; i += kThreads) col[i] = a[i * ld + k] * inv;
-    if (tid == 0) {
-      col[k] = lkk;
-      const T zk = (yv[k] - acc[k]) * inv;
-      zv[k] = zk;
-      zk_shared = zk;
-      logdet += log(d);
-    }
-    __syncthreads();
-
-    // Phase B: store the column, forward accumulator, trailing update.
-    const T zk = zk_shared;
-    for (int i = k + tid; i < t; i += kThreads) {
-      a[i * ld + k] = col[i];
-      if (i > k) acc[i] += col[i] * zk;
-    }
-    for (int i = k + 1 + ty; i < t; i += kRows) {
-      const T ci = col[i];
-      T* row = a + i * ld;
-      for (int j = k + 1 + tx; j <= i; j += 32) row[j] -= ci * col[j];
-    }
-    __syncthreads();
-  }
+  bet::chol_factorise<kThreads>(
+      a, ld, col, t,
+      [&](int k, T d, T inv) {  // forward substitution and log-det, in column order
+        const T zk = (yv[k] - acc[k]) * inv;
+        zv[k] = zk;
+        zk_shared = zk;
+        logdet += log(d);
+      },
+      [&](int i, T li) { acc[i] += li * zk_shared; });
 
   // alpha = L^-T z, column-oriented: alpha_i = r_i / L_ii, then
   // r_m -= L_im alpha_i for m < i.

@@ -16,13 +16,15 @@ from __future__ import annotations
 
 import math
 import typing as tp
+import warnings
 
 import torch
 from torch import nn
 
 from bayesian_ensembling_tpu_torch._errors import not_ported
 from bayesian_ensembling_tpu_torch.ops import dtw as dtw_ops
-from bayesian_ensembling_tpu_torch.ops.linalg_cuda import chol_solve, nlml_terms, tri_inv
+from bayesian_ensembling_tpu_torch.ops import linalg_cuda
+from bayesian_ensembling_tpu_torch.ops.linalg_blocked import nlml_terms_blocked
 
 __all__ = [
     "BatchedGPParams",
@@ -187,8 +189,14 @@ def fit_gp_batch(
     """Fit ``M`` independent GPs with Adam on the summed exact NLML.
 
     The models are independent, so the gradient of the sum is each model's
-    own gradient.  Every step evaluates the NLML through the Cholesky-solve
-    kernel and its gradient through the triangular-inverse kernel.
+    own gradient.  ``linalg_cuda.linalg_path(T, b=M, dtype)`` picks the NLML
+    once per fit, as the JAX package does: the recursive blocked NLML
+    (``ops/linalg_blocked.py``) on the blocked route, else
+    ``linalg_cuda.nlml_terms`` (the Cholesky-solve and triangular-inverse
+    kernels within their size cap, torch.linalg beyond).  A model whose loss
+    goes non-finite (a Gram that is not positive definite in the working
+    precision) draws a warning naming it; the fit itself goes on, as in the
+    JAX package.
 
     Args:
       x: ``(M, T, D)`` feature matrices.  y: ``(M, T)`` DBA means.
@@ -216,14 +224,25 @@ def fit_gp_batch(
         )
     leaves = list(params.parameters())
     opt = _Adam(leaves, learning_rate)
+    if linalg_cuda.linalg_path(t, b=m, dtype=y.dtype) == "blocked":
+        nlml = nlml_terms_blocked
+    else:
+        nlml = linalg_cuda.nlml_terms
     losses = torch.empty((n_optim_nits, m), dtype=y.dtype, device=y.device)
     for it in range(n_optim_nits):
         ky = apply_fn(params, stat) + diag_noise + jitter_eye
-        quad, logdet = nlml_terms(ky, y)
+        quad, logdet = nlml(ky, y)
         per_model = 0.5 * (quad + logdet + t * _LOG_2PI)
         grads = torch.autograd.grad(per_model.sum(), leaves)
         opt.step(grads)
         losses[it] = per_model.detach()
+    bad = torch.nonzero(~torch.isfinite(losses).all(dim=0)).flatten().tolist()
+    if bad:
+        warnings.warn(
+            f"fit_gp_batch: the NLML of model(s) {bad} of {m} went non-finite at T={t} "
+            f"({y.dtype}); their fitted hyperparameters are not usable",
+            stacklevel=2,
+        )
     return params, losses.T
 
 
@@ -276,14 +295,16 @@ def posterior_marginals_batch(
 ) -> tp.Tuple[torch.Tensor, torch.Tensor]:
     """Posterior marginal mean and variance of the latent f at the training
     inputs: mean = K alpha and var_i = k_ii - ||(W K)_{:, i}||^2 with
-    W = L^-1, through the Cholesky-solve and triangular-inverse kernels.
-    Both products run in full float32 on the card (the TPU used HIGHEST)."""
+    W = L^-1.  The Cholesky-solve and triangular-inverse kernels within
+    their size cap, torch.linalg beyond (``linalg_cuda``'s routed calls; no
+    blocked route), as the JAX posterior takes XLA's.  Both products run in
+    full float32 on the card (the TPU used HIGHEST)."""
     precompute, apply_fn = get_kernel_precomputed(kernel_name)
     k = apply_fn(params, precompute(x, x))
     t = k.shape[-1]
     ky = k + torch.diag_embed(noise_var) + jitter * torch.eye(t, dtype=k.dtype, device=k.device)
-    l, _, alpha, _ = chol_solve(ky, y)
+    l, _, alpha, _ = linalg_cuda.chol_solve_routed(ky, y)
     mean = torch.einsum("bij,bj->bi", k, alpha)
-    wk = torch.matmul(tri_inv(l), k)
+    wk = torch.matmul(linalg_cuda.tri_inv_routed(l), k)
     var = torch.diagonal(k, dim1=-2, dim2=-1) - torch.einsum("bji,bji->bi", wk, wk)
     return mean, torch.clamp(var, min=1e-12)

@@ -21,6 +21,7 @@ from bayesian_ensembling_tpu_torch.ops import gp as gp_ops
 from bayesian_ensembling_tpu_torch.ops import scoring
 
 __all__ = [
+    "chunked_marginals",
     "emulate_marginals",
     "fused_raw_weights",
     "ensemble_scenario_step",
@@ -104,6 +105,34 @@ def emulate_marginals(
     if return_params:
         return mean, var + y_var, params
     return mean, var + y_var
+
+
+def chunked_marginals(em, block: torch.Tensor, mask: torch.Tensor, chunk: int):
+    """Run an emulator ``em(block, mask) -> (mean, var)`` over a merged
+    ``(B, R, T)`` batch in model chunks of ``chunk``, one call per chunk.
+
+    Bounds the peak device memory of the fit at one chunk's working set
+    (several ``(chunk, T, T)`` buffers at the monthly historical T = 1980).
+    When ``B % chunk != 0`` the last chunk is padded with replicated real
+    rows (tiled when the pad exceeds the batch), so every chunk has one
+    shape and the padded rows run well-conditioned math; their results are
+    sliced off.
+    """
+    if chunk <= 0:
+        raise ValueError(f"chunk must be positive, got {chunk}")
+    b = block.shape[0]
+    g = -(-b // chunk)
+    pad = g * chunk - b
+    if pad:
+        reps = -(-pad // b)
+        block = torch.cat([block] + [block] * reps, dim=0)[: g * chunk]
+        mask = torch.cat([mask] + [mask] * reps, dim=0)[: g * chunk]
+    means, varis = [], []
+    for i in range(g):
+        mu, var = em(block[i * chunk : (i + 1) * chunk], mask[i * chunk : (i + 1) * chunk])
+        means.append(mu)
+        varis.append(var)
+    return torch.cat(means)[:b], torch.cat(varis)[:b]
 
 
 def _barycentre(weights, ssp_mean, ssp_var, sigma_mode):

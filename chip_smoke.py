@@ -11,10 +11,17 @@ Phases, in order; any failure exits non-zero:
    the TF32 flags (float32 matmuls must run in full float32).
 2. Build: compiles the CUDA kernels in ``bayesian_ensembling_tpu_torch/csrc``
    with nvcc for sm_90a (into ``build/torch_kernels/``) and loads them.
-3. Kernels against their plain PyTorch versions at the main path's shapes:
+3. Kernels against their plain PyTorch versions at the main paths' shapes:
    the DBA update (N = 3,248 pairs, T = 165 and 86, exact), the fused
    Cholesky-solve and the triangular inverse (B = 112, T = 165 and 86), and
-   one non-positive-definite input that must come back NaN.
+   one non-positive-definite input that must come back NaN; then the
+   monthly path's kernels: the split DBA update (exact, at the monthly
+   collections' N and T = 1980 / 1032, and against the fused kernel at
+   T = 165), the Cholesky and the triangular inverse at the blocked NLML's
+   leaves (B = 65, T = 128; the Cholesky with a non-positive-definite
+   slot), the blocked NLML in float32 against
+   torch.linalg in float64 (B = 65, T = 1032), and the route timings that
+   the linalg_path thresholds are decided from.
 4. The slice: ``ensemble_multi_scenario_step`` on synthetic GMST-like inputs
    of the flagship shape (7 SSPs x 16 padded models x 29 ragged
    realisations, T = 165 / 86, 200 observation members), float32 on the card
@@ -23,6 +30,15 @@ Phases, in order; any failure exits non-zero:
    barycentre mean and std must agree within 0.01 degC pointwise.
 5. Timing of the faithful workload (2,000 Adam steps, 10 DBA iterations):
    median wall time of the step, and a per-stage split.
+6. The native-monthly dedup campaign, ``run_dedup_campaign``, on synthetic
+   inputs of its full width (20 unique historical models at T = 1980, 7
+   scenarios with 65 SSP fits at T = 1032 padded to M = 16, 3 to 29
+   realisations, 200 observation members) at the production monthly
+   settings (500 Adam steps, 10 DBA iterations, historical chunks of 28):
+   float32 on the card with every launch and route counter checked, then
+   float64 on the card (the library route for every fit) as the reference,
+   within 0.01 degC; then the median wall time of 3 float32 runs and a
+   per-stage split.
 
 The last lines are a JSON summary of the kernels, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -46,6 +62,20 @@ PARITY_DEGC = 0.01  # f32-vs-f64 gate on barycentre moments (bench.py's gate)
 PARITY_NITS = 500
 TIMING_NITS, TIMING_REPS = 2000, 3  # the faithful workload; median of 3 after a warm-up
 LINALG_TOL = 1e-3  # float32 kernel vs float32 plain version, relative to the largest entry
+
+# The native-monthly campaign (benchmarks/monthly_bench.py all): 20 unique
+# historical models, 7 scenarios with 65 real SSP fits padded to M = 16.
+N_HIST_MODELS, SSP_MODELS = 20, (16, 12, 9, 8, 7, 7, 6)
+T_HIST_M, T_SSP_M, HIST_CHUNK = 1980, 1032, 28
+MONTHLY_NITS, MONTHLY_REPS = 500, 3
+# float32 blocked NLML vs float64 torch.linalg at (65, 1032), relative to the
+# largest entry: float32 round-off of the Cholesky of a Gram whose condition
+# number is about 1e5 (T / noise).
+BLOCKED_TOL = 1e-2
+
+# Peak rates of one H100 SXM (NVIDIA's data sheet) for the kernels' bounds.
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
 
 
 def log(*a):
@@ -141,6 +171,34 @@ def _abs(got, want):
     return (got.double().cpu() - want.double().cpu()).abs().max().item()
 
 
+def _bound(n_bytes, n_ops):
+    """(least time in ms, what bounds it): the bytes over the memory rate or
+    the float32 operations over the peak rate, whichever is larger."""
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = n_ops / FP32_OPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def _dba_work(n, t, e=4):
+    """Centres and series read, sums and counts written; per cell of the DP a
+    subtract, a multiply, an add and two comparisons."""
+    return 4 * n * t * e, 5 * n * t * t
+
+
+def _triangle_work(b, t, e=4):
+    """The Cholesky (K to L) or the triangular inverse (L to W): the lower
+    triangle of one T x T matrix read (all either kernel reads) and the whole
+    T x T result written (zeros above the diagonal included), T^3/3 flops
+    per matrix."""
+    return b * (t * (t + 1) // 2 + t * t) * e, b * t ** 3 / 3
+
+
+def _chol_solve_work(b, t, e=4):
+    """K and y read; L, z, alpha and log|K| written; T^3/3 flops for the
+    factor and T^2 for each of the two triangular solves."""
+    return b * (2 * t * t + 4 * t + 1) * e, b * (t ** 3 / 3 + 2 * t * t)
+
+
 def _matern_spd(torch, x, noise, dev):
     """Matern-3/2 Grams (lengthscale 1, variance 1) of the features plus noise."""
     from bayesian_ensembling_tpu_torch.ops import gp as gp_ops
@@ -179,7 +237,8 @@ def check_kernels(torch, inputs, dev, report):
         log(f"  dba_update N={n} T={t}: exact={exact} max_abs_err={err:.3e} "
             f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms")
         ok &= exact
-        report["dba_update"].append(dict(t=t, err=err, ms=ms, plain_ms=plain_ms))
+        report["dba_update"].append(dict(t=t, err=err, ms=ms, plain_ms=plain_ms,
+                                         work=_dba_work(n, t), library_ms=None))
 
         # B2 / B3 on Matern Grams of this collection's features plus noise.
         b = block.shape[0] * block.shape[1]
@@ -202,7 +261,8 @@ def check_kernels(torch, inputs, dev, report):
             + f" (tol {LINALG_TOL}); vs f64: kernel {vs64[0]:.2e}, plain {vs64[1]:.2e}; "
             f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
         ok &= max(rels) < LINALG_TOL
-        report["chol_solve"].append(dict(t=t, err=err, ms=ms, plain_ms=plain_ms))
+        report["chol_solve"].append(dict(t=t, err=err, ms=ms, plain_ms=plain_ms,
+                                         work=_chol_solve_work(b, t), library_ms=None))
 
         l = want[0].contiguous()  # torch.linalg returns a column-major factor
         got_w = lc.tri_inv(l)
@@ -213,11 +273,14 @@ def check_kernels(torch, inputs, dev, report):
         err = _abs(got_w, want_w)
         ms = _cuda_ms(torch, lambda: lc.tri_inv(l), 50)
         plain_ms = _cuda_ms(torch, lambda: lc.tri_inv_reference(l), 10)
+        eye = torch.eye(t, device=dev).expand_as(l)
+        lib_ms = _cuda_ms(torch, lambda: torch.linalg.solve_triangular(l, eye, upper=False), 10)
         log(f"  tri_inv B={b} T={t}: rel err {rel:.2e} (tol {LINALG_TOL}); vs f64: kernel "
             f"{_rel(got_w, exact_w):.2e}, plain {_rel(want_w, exact_w):.2e}; "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, solve_triangular {lib_ms:.4f} ms")
         ok &= rel < LINALG_TOL
-        report["tri_inv"].append(dict(t=t, err=err, ms=ms, plain_ms=plain_ms))
+        report["tri_inv"].append(dict(t=t, err=err, ms=ms, plain_ms=plain_ms,
+                                      work=_triangle_work(b, t), library_ms=lib_ms))
 
         bad = ky.clone()
         bad[5] = -torch.eye(t, device=dev)
@@ -259,6 +322,313 @@ def stage_split(torch, bt, inputs, dev, nits):
     dt, _ = _wall(torch, lambda: bt.multi_scenario_tail(hmu, hvar, smu, svar, obs, hb, hm, mm))
     times["tail"] += dt
     return times
+
+
+class MonthlyCollection:
+    """A numpy stand-in for the JAX package's ``ModelCollection``: the
+    three things ``pack_dedup_campaign`` reads of a collection."""
+
+    def __init__(self, names, blocks):
+        self.model_names = list(names)
+        self.blocks = list(blocks)  # (realisations, T) each
+
+    def __len__(self):
+        return len(self.model_names)
+
+    @property
+    def max_realisations(self):
+        return max(b.shape[0] for b in self.blocks)
+
+    def padded_stack(self, dtype=np.float32, r_target=None):
+        r = self.max_realisations if r_target is None else r_target
+        out = np.zeros((len(self.blocks), r, self.blocks[0].shape[1]), dtype)
+        mask = np.zeros((len(self.blocks), r), bool)
+        for i, b in enumerate(self.blocks):
+            out[i, : b.shape[0]] = b
+            mask[i, : b.shape[0]] = True
+        return out, mask
+
+
+def synthetic_monthly(seed, r=R, r_obs=R_OBS):
+    """The native-monthly campaign's inputs, GMST-anomaly-like, from a seed.
+
+    A pool of 20 historical models (T = 1980 months), each with a climate
+    sensitivity, an offset and 3 to ``r`` realisations of monthly AR(1)
+    internal variability; 7 scenarios whose model lists are drawn from the
+    pool (65 SSP runs in all, T = 1032 months), each warming at its own
+    rate.  A model's historical block is the same array in every scenario
+    that lists it, as the dedup requires.
+    """
+    rng = np.random.default_rng(seed)
+    forced_h = 1.2 * (np.arange(T_HIST_M) / (T_HIST_M - 1)) ** 3 - 0.1
+    sens = rng.normal(1.0, 0.2, N_HIST_MODELS)
+    offset = rng.normal(0.0, 0.15, N_HIST_MODELS)
+    # At least three realisations (ROADMAP C6): a two-member model whose
+    # noise reaches the 1e-8 floor has a float32 Gram at monthly T that is
+    # not positive definite as stored, so its float32 NLML is NaN in the JAX
+    # package and in the port alike (tests/test_torch_linalg_blocked.py).
+    counts = rng.integers(3, r + 1, N_HIST_MODELS)
+    counts[0], counts[-1] = 3, r
+    names = [f"model{k:02d}" for k in range(N_HIST_MODELS)]
+    hist = [sens[k] * forced_h + offset[k] + _ar1(rng, (counts[k], T_HIST_M), 0.9, 0.15)
+            for k in range(N_HIST_MODELS)]
+    scenarios = []
+    for si, m_s in enumerate(SSP_MODELS):
+        if si == 0:
+            members = list(range(m_s))
+        elif si == 1:
+            members = list(range(N_HIST_MODELS - m_s, N_HIST_MODELS))
+        else:
+            members = sorted(rng.choice(N_HIST_MODELS, m_s, replace=False).tolist())
+        rate = (0.005 + 0.035 * si / (len(SSP_MODELS) - 1)) / 12  # degC per month
+        forced_s = forced_h[-1] + rate * np.arange(1, T_SSP_M + 1)
+        ssp = [sens[k] * forced_s + offset[k] + _ar1(rng, (counts[k], T_SSP_M), 0.9, 0.15)
+               for k in members]
+        scenarios.append((f"ssp{si}", MonthlyCollection([names[k] for k in members],
+                                                        [hist[k] for k in members]),
+                          MonthlyCollection([names[k] for k in members], ssp)))
+    obs = forced_h + _ar1(rng, (r_obs, T_HIST_M), 0.9, 0.05)
+    return scenarios, obs
+
+
+def _monthly_centres(torch, block, mask, dev):
+    """(centres, series) of a collection's first DBA iteration, on the card:
+    each realisation paired with its model's masked mean."""
+    b, r, t = block.shape
+    series = torch.tensor(block.reshape(-1, t), dtype=torch.float32, device=dev)
+    w = torch.tensor(mask, dtype=torch.float32, device=dev)
+    b3 = series.reshape(b, r, t)
+    centers = (b3 * w[:, :, None]).sum(1) / w.sum(1, keepdim=True).clamp(min=1.0)
+    return centers.repeat_interleave(r, dim=0).contiguous(), series
+
+
+def _nlml_step(torch, nlml, ky, y):
+    """One NLML value and gradient with respect to K, as a fit step needs."""
+    k = ky.detach().requires_grad_(True)
+    quad, logdet = nlml(k, y)
+    (g,) = torch.autograd.grad((quad + logdet).sum(), (k,))
+    return quad.detach(), logdet.detach(), g
+
+
+def check_monthly_kernels(torch, pack, dev, report):
+    """Phase 3, monthly path: the split DBA update, the Cholesky and the
+    blocked NLML at the campaign's shapes, and the route timings."""
+    from bayesian_ensembling_tpu_torch.ops import dtw_cuda
+    from bayesian_ensembling_tpu_torch.ops import linalg_blocked as lb
+    from bayesian_ensembling_tpu_torch.ops import linalg_cuda as lc
+    from bayesian_ensembling_tpu_torch.parallel.campaign import pad_unique_axis
+
+    ok = True
+    uh, um = pad_unique_axis(pack.uh, pack.um, HIST_CHUNK)  # the one historical chunk
+    for name, block, mask in (("hist", uh, um), ("ssp", pack.usb, pack.usm)):
+        centers, series = _monthly_centres(torch, block, mask, dev)
+        n, t = series.shape
+        got = dtw_cuda.dba_update_batch(centers, series)
+        want = dtw_cuda.dba_update_batch_reference(centers, series)
+        torch.cuda.synchronize()
+        exact = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        err = max(_abs(got[0], want[0]), _abs(got[1], want[1]))
+        ms = _cuda_ms(torch, lambda: dtw_cuda.dba_update_batch(centers, series), 5)
+        plain_ms = _cuda_ms(torch, lambda: dtw_cuda.dba_update_batch_reference(centers, series), 1)
+        del got, want
+        torch.cuda.empty_cache()
+        log(f"  dba_update_split N={n} T={t} ({name}): exact={exact} max_abs_err={err:.3e} "
+            f"kernel {ms:.3f} ms, plain {plain_ms:.1f} ms")
+        ok &= exact
+        report["dba_update_split"].append(dict(t=t, n=n, err=err, ms=ms, plain_ms=plain_ms,
+                                               work=_dba_work(n, t), library_ms=None))
+
+    # The split kernel against the fused one at the annual T, same pairs.
+    rng = np.random.default_rng(2)
+    c = torch.tensor(rng.normal(size=(S * M * R, T_HIST)), dtype=torch.float32, device=dev)
+    x = torch.tensor(rng.normal(size=(S * M * R, T_HIST)), dtype=torch.float32, device=dev)
+    split = dtw_cuda.dba_update_batch(c, x, impl="split")
+    fused = dtw_cuda.dba_update_batch(c, x, impl="fused")
+    torch.cuda.synchronize()
+    same = torch.equal(split[0], fused[0]) and torch.equal(split[1], fused[1])
+    ms_split = _cuda_ms(torch, lambda: dtw_cuda.dba_update_batch(c, x, impl="split"), 10)
+    ms_fused = _cuda_ms(torch, lambda: dtw_cuda.dba_update_batch(c, x, impl="fused"), 10)
+    log(f"  dba_update_split vs dba_update N={c.shape[0]} T={T_HIST}: equal={same}; split "
+        f"{ms_split:.4f} ms, fused {ms_fused:.4f} ms")
+    ok &= same
+
+    # The Cholesky at the blocked NLML's leaves: Matern Grams of 128-step
+    # windows of the SSP features plus noise, one slot not positive definite.
+    nb = lb.DEFAULT_BLOCK
+    feats = torch.tensor(pack.usb[:, :, :nb], dtype=torch.float32, device=dev).transpose(1, 2)
+    b = feats.shape[0]
+    noise = torch.tensor(rng.uniform(0.005, 0.05, (b, nb)), dtype=torch.float32, device=dev)
+    ky = _matern_spd(torch, feats.contiguous(), noise, dev)
+    got = lc.chol(ky)
+    want = lc.chol_reference(ky)
+    exact64 = lc.chol_reference(ky.double())
+    torch.cuda.synchronize()
+    rel, err = _rel(got, want), _abs(got, want)
+    ms = _cuda_ms(torch, lambda: lc.chol(ky), 50)
+    plain_ms = _cuda_ms(torch, lambda: lc.chol_reference(ky), 20)
+    lib_ms = _cuda_ms(torch, lambda: torch.linalg.cholesky_ex(ky), 20)
+    log(f"  chol B={b} T={nb}: rel err {rel:.2e} (tol {LINALG_TOL}); vs f64: kernel "
+        f"{_rel(got, exact64):.2e}, plain {_rel(want, exact64):.2e}; kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, cholesky_ex {lib_ms:.4f} ms")
+    ok &= rel < LINALG_TOL
+    report["chol"].append(dict(t=nb, err=err, ms=ms, plain_ms=plain_ms,
+                               work=_triangle_work(b, nb), library_ms=lib_ms))
+
+    # The triangular inverse at the same leaves, on the kernel's factors.
+    got_w = lc.tri_inv(got)
+    want_w = lc.tri_inv_reference(got)
+    exact_w = lc.tri_inv_reference(got.double())
+    torch.cuda.synchronize()
+    rel, err = _rel(got_w, want_w), _abs(got_w, want_w)
+    ms = _cuda_ms(torch, lambda: lc.tri_inv(got), 50)
+    plain_ms = _cuda_ms(torch, lambda: lc.tri_inv_reference(got), 20)
+    eye = torch.eye(nb, device=dev).expand_as(got)
+    lib_ms = _cuda_ms(torch, lambda: torch.linalg.solve_triangular(got, eye, upper=False), 20)
+    log(f"  tri_inv B={b} T={nb}: rel err {rel:.2e} (tol {LINALG_TOL}); vs f64: kernel "
+        f"{_rel(got_w, exact_w):.2e}, plain {_rel(want_w, exact_w):.2e}; kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, solve_triangular {lib_ms:.4f} ms")
+    ok &= rel < LINALG_TOL
+    report["tri_inv"].append(dict(t=nb, err=err, ms=ms, plain_ms=plain_ms,
+                                  work=_triangle_work(b, nb), library_ms=lib_ms))
+    bad = ky.clone()
+    bad[3] = -torch.eye(nb, device=dev)
+    l_bad = lc.chol(bad)
+    torch.cuda.synchronize()
+    nan_ok = bool(torch.isnan(l_bad[3].diagonal()).all() and torch.isfinite(l_bad[:3]).all()
+                  and torch.isfinite(l_bad[4:]).all())
+    log(f"  chol non-PD input at T={nb} gives NaN only there: {nan_ok}")
+    ok &= nan_ok
+
+    # The blocked NLML (float32, kernels) against torch.linalg (float64) at
+    # the SSP fit's shape, then the route timings of one NLML value and
+    # gradient: blocked vs library at (65, 1032), library (and, beyond
+    # BLOCKED_T_CAP, blocked) at the historical chunk (28, 1980).
+    timings = {}
+    for name, block, nbatch in (("ssp", pack.usb, None), ("hist", uh, HIST_CHUNK)):
+        feats = torch.tensor(block[:nbatch], dtype=torch.float32, device=dev).transpose(1, 2)
+        b, t = feats.shape[0], feats.shape[1]
+        noise = torch.tensor(rng.uniform(0.005, 0.05, (b, t)), dtype=torch.float32, device=dev)
+        ky = _matern_spd(torch, feats.contiguous(), noise, dev)
+        y = torch.tensor(rng.normal(size=(b, t)), dtype=torch.float32, device=dev)
+        library = lc.nlml_terms  # T is beyond the kernels' cap: torch.linalg
+        if name == "ssp":
+            got = _nlml_step(torch, lb.nlml_terms_blocked, ky, y)
+            want = _nlml_step(torch, library, ky.double(), y.double())
+            torch.cuda.synchronize()
+            rels = [_rel(g, w_) for g, w_ in zip(got, want)]
+            log(f"  nlml_terms_blocked B={b} T={t} f32 vs library f64: rel err (quad, logdet, "
+                f"dK) = " + ", ".join(f"{e:.2e}" for e in rels) + f" (tol {BLOCKED_TOL})")
+            ok &= max(rels) < BLOCKED_TOL
+        for route, fn in (("blocked", lb.nlml_terms_blocked), ("library", library)):
+            timings[(route, b, t)] = _cuda_ms(torch, lambda: _nlml_step(torch, fn, ky, y), 5)
+            log(f"  route {route} B={b} T={t}: {timings[(route, b, t)]:.3f} ms per NLML value "
+                "and gradient (f32)")
+        del ky
+        torch.cuda.empty_cache()
+    report["routes"] = timings
+    return ok
+
+
+def _campaign(torch, bt, pack, obs, dev, dtype):
+    return bt.run_dedup_campaign(pack, obs, hist_chunk=HIST_CHUNK, device=dev, dtype=dtype,
+                                 n_optim_nits=MONTHLY_NITS, dba_iterations=10)
+
+
+def campaign_stage_split(torch, pack, obs, dev):
+    """Wall time of each stage of one float32 campaign, run stage by stage
+    (the composition of ``run_dedup_campaign`` and ``emulate_marginals``)."""
+    from bayesian_ensembling_tpu_torch.ops import gp as gp_ops
+    from bayesian_ensembling_tpu_torch.parallel.step import chunked_marginals, multi_scenario_tail
+
+    times = {}
+
+    def staged(key):
+        def em(block, mask):
+            dt, (x, y, v) = _wall(torch, lambda: gp_ops.prepare_gp_inputs(block, mask, dba_iterations=10))
+            times[f"{key}_dba"] = times.get(f"{key}_dba", 0.0) + dt
+            dt, (params, _) = _wall(torch, lambda: gp_ops.fit_gp_batch(x, y, v, n_optim_nits=MONTHLY_NITS))
+            times[f"{key}_fit"] = times.get(f"{key}_fit", 0.0) + dt
+            dt, (mu, var) = _wall(torch, lambda: gp_ops.posterior_marginals_batch(params, x, y, v))
+            times[f"{key}_posterior"] = times.get(f"{key}_posterior", 0.0) + dt
+            return mu, var + v
+        return em
+
+    def tensor(a):
+        return torch.tensor(a, dtype=torch.bool if a.dtype == bool else torch.float32, device=dev)
+
+    h_mu, h_var = chunked_marginals(staged("hist"), tensor(pack.uh), tensor(pack.um), HIST_CHUNK)
+    s_mu, s_var = staged("ssp")(tensor(pack.usb), tensor(pack.usm))
+    uidx = torch.tensor(pack.uidx, device=dev)
+    sidx = torch.tensor(pack.sidx, device=dev)
+    dt, _ = _wall(torch, lambda: multi_scenario_tail(
+        h_mu[uidx], h_var[uidx], s_mu[sidx], s_var[sidx], tensor(obs), tensor(pack.hb),
+        tensor(pack.hm), tensor(pack.mmask)))
+    times["tail"] = dt
+    return times
+
+
+def run_monthly(torch, bt, dev, seed, report):
+    """Phase 6: the dedup campaign, float32 checked against float64, timed."""
+    from bayesian_ensembling_tpu_torch.ops import linalg_blocked as lb
+
+    scenarios, obs = synthetic_monthly(seed)
+    pack = bt.pack_dedup_campaign(scenarios)
+    counts = pack.um.sum(axis=1)
+    log(f"[monthly] {len(scenarios)} scenarios, {pack.uh.shape[0]} unique historical fits "
+        f"(T={T_HIST_M}) + {pack.usb.shape[0]} SSP fits (T={T_SSP_M}), padded M="
+        f"{pack.mmask.shape[1]}, R={pack.hb.shape[2]} (realisations {counts.min()}..{counts.max()}), "
+        f"R_obs={obs.shape[0]}; {MONTHLY_NITS} Adam steps, 10 DBA iterations, chunks of {HIST_CHUNK}")
+
+    bt.reset_launch_counts()
+    dt, (bm, bs, w) = _wall(torch, lambda: _campaign(torch, bt, pack, obs, dev, torch.float32))
+    launches, routes = bt.launch_counts(), bt.route_counts()
+    n_leaves = -(-T_SSP_M // lb.DEFAULT_BLOCK)  # the blocked NLML's leaves: 9 at T = 1032
+    n_chunks = -(-pack.uh.shape[0] // HIST_CHUNK)
+    expected = {"dba_update": 0, "dba_update_split": 2 * 10, "chol_solve": 0,
+                "tri_inv": n_leaves * MONTHLY_NITS, "chol": n_leaves * MONTHLY_NITS}
+    # One blocked NLML per SSP fit step; on the library route, a factorisation
+    # and a triangular inverse per historical fit step and per posterior.
+    expected_routes = {"kernel": 0, "blocked": MONTHLY_NITS,
+                       "library": n_chunks * (2 * MONTHLY_NITS + 2) + 2}
+    log(f"[monthly] f32 on the card: {dt:.2f} s; launches {launches} (expected {expected}); "
+        f"routes {routes} (expected {expected_routes})")
+    wsum = w.double().sum(dim=1)
+    finite = all(bool(torch.isfinite(a).all()) for a in (bm, bs, w))
+    if (launches != expected or routes != expected_routes or not finite
+            or (wsum - 1.0).abs().max().item() > 1e-5):
+        print(f"chip_smoke: monthly check failed (finite={finite}, weight sums {wsum.tolist()})",
+              file=sys.stderr)
+        return None
+    report["monthly_launches"] = launches
+    warm = dt
+
+    bt.reset_launch_counts()
+    dt, ref = _wall(torch, lambda: _campaign(torch, bt, pack, obs, dev, torch.float64))
+    dmean, dstd, dw = _abs(bm, ref[0]), _abs(bs, ref[1]), _abs(w, ref[2])
+    log(f"[monthly] f64 on the card: {dt:.2f} s; launches {bt.launch_counts()}, routes "
+        f"{bt.route_counts()}; max |dmean| {dmean:.3e} degC, max |dstd| {dstd:.3e} degC "
+        f"(gate {PARITY_DEGC}), max |dweight| {dw:.3e}")
+    log("[monthly] last-month barycentre by scenario: " + ", ".join(
+        f"{m_:.3f}+-{s_:.3f}" for m_, s_ in zip(bm[:, -1].tolist(), bs[:, -1].tolist())))
+    if not (dmean < PARITY_DEGC and dstd < PARITY_DEGC):
+        print("chip_smoke: the f32 monthly campaign disagrees with the f64 one", file=sys.stderr)
+        return None
+
+    walls = []
+    for rep in range(MONTHLY_REPS):
+        torch.cuda.reset_peak_memory_stats()
+        dt, out = _wall(torch, lambda: _campaign(torch, bt, pack, obs, dev, torch.float32))
+        walls.append(dt)
+        log(f"[monthly] run {rep + 1}: {dt:.3f} s (peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB)")
+    if not all(bool(torch.isfinite(a).all()) for a in out):
+        print("chip_smoke: a timed monthly run gave non-finite output", file=sys.stderr)
+        return None
+    split = campaign_stage_split(torch, pack, obs, dev)
+    log(f"[monthly] {MONTHLY_NITS} Adam steps, {pack.n_fits} fits: median "
+        f"{statistics.median(walls):.3f} s over {len(walls)} runs (warm-up {warm:.3f} s); stages "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in split.items()))
+    return True
 
 
 def main(argv=None):
@@ -303,24 +673,29 @@ def main(argv=None):
         f"{inputs[5].sum(axis=1).astype(int).tolist()}")
 
     # Phase 3: kernels against their plain versions.
-    report = {"dba_update": [], "chol_solve": [], "tri_inv": []}
+    report = {"dba_update": [], "dba_update_split": [], "chol_solve": [], "tri_inv": [], "chol": []}
     log("[kernels]")
-    if not check_kernels(torch, inputs, dev, report):
+    monthly_pack = bt.pack_dedup_campaign(synthetic_monthly(args.seed)[0])
+    if not (check_kernels(torch, inputs, dev, report)
+            and check_monthly_kernels(torch, monthly_pack, dev, report)):
         print("chip_smoke: a kernel disagrees with its plain version", file=sys.stderr)
         return 1
+    del monthly_pack
 
     # Phase 4: the slice through the kernels, then the f64 plain reference.
     bt.reset_launch_counts()
     dt, (bm, bs, w) = _wall(torch, lambda: run_slice(torch, bt, inputs, dev, torch.float32,
                                                      PARITY_NITS))
-    launches = bt.launch_counts()
-    expected = {"dba_update": 2 * 10, "chol_solve": 2 * (PARITY_NITS + 1),
-                "tri_inv": 2 * (PARITY_NITS + 1)}
+    launches, routes = bt.launch_counts(), bt.route_counts()
+    expected = {"dba_update": 2 * 10, "dba_update_split": 0, "chol_solve": 2 * (PARITY_NITS + 1),
+                "tri_inv": 2 * (PARITY_NITS + 1), "chol": 0}
+    expected_routes = {"kernel": 4 * (PARITY_NITS + 1), "blocked": 0, "library": 0}
     log(f"[slice] f32 on the card, {PARITY_NITS} Adam steps: {dt:.2f} s; "
-        f"launches {launches} (expected {expected})")
+        f"launches {launches} (expected {expected}); routes {routes} (expected {expected_routes})")
     wsum = w.double().sum(dim=1)
     finite = all(bool(torch.isfinite(a).all()) for a in (bm, bs, w))
-    if launches != expected or not finite or (wsum - 1.0).abs().max().item() > 1e-5:
+    if (launches != expected or routes != expected_routes or not finite
+            or (wsum - 1.0).abs().max().item() > 1e-5):
         print(f"chip_smoke: slice check failed (finite={finite}, weight sums {wsum.tolist()})",
               file=sys.stderr)
         return 1
@@ -351,30 +726,48 @@ def main(argv=None):
         return 1
     split = stage_split(torch, bt, inputs, dev, TIMING_NITS)
     per_step = split["fit"] / (2 * TIMING_NITS) * 1e3
-    # One chol_solve and one tri_inv per Adam step, averaged over the two collections.
-    kern = sum(r["ms"] for name in ("chol_solve", "tri_inv") for r in report[name]) / 2
+    # One chol_solve and one tri_inv per Adam step, averaged over the two
+    # collections (the annual shapes only, not the monthly leaves).
+    kern = sum(r["ms"] for name in ("chol_solve", "tri_inv") for r in report[name]
+               if r["t"] in (T_HIST, T_SSP)) / 2
     log(f"[timing] {TIMING_NITS} Adam steps, 10 DBA iterations, S*M={S * M}: median "
         f"{statistics.median(walls):.3f} s over {len(walls)} runs; stages " + ", ".join(
             f"{k} {v:.3f} s" for k, v in split.items()))
     log(f"[timing] fit: {per_step:.3f} ms per Adam step and collection, of which the two linalg "
         f"kernels take {kern:.3f} ms (the rest is launch overhead and small ops)")
 
+    # Phase 6: the native-monthly dedup campaign.
+    if not run_monthly(torch, bt, dev, args.seed, report):
+        return 1
+
+    # Each kernel's row: its time and bound at the first shape it was checked
+    # at (the annual T = 165 for B1-B3, the leaves for B4, T = 1980 for B6),
+    # and its launches in the run of the path it serves (annual or monthly).
     src = {
         "dba_update": ("bayesian_ensembling_tpu_torch/csrc/dba_update.cu",
-                       "bayesian_ensembling_tpu/ops/dtw_pallas.py:337"),
+                       "bayesian_ensembling_tpu/ops/dtw_pallas.py:337", launches),
         "chol_solve": ("bayesian_ensembling_tpu_torch/csrc/chol_solve.cu",
-                       "bayesian_ensembling_tpu/ops/linalg_pallas.py:247"),
+                       "bayesian_ensembling_tpu/ops/linalg_pallas.py:247", launches),
         "tri_inv": ("bayesian_ensembling_tpu_torch/csrc/tri_inv.cu",
-                    "bayesian_ensembling_tpu/ops/linalg_pallas.py:414"),
+                    "bayesian_ensembling_tpu/ops/linalg_pallas.py:414", launches),
+        "chol": ("bayesian_ensembling_tpu_torch/csrc/chol.cu",
+                 "bayesian_ensembling_tpu/ops/linalg_pallas.py:153", report["monthly_launches"]),
+        "dba_update_split": ("bayesian_ensembling_tpu_torch/csrc/dba_update_split.cu",
+                             "bayesian_ensembling_tpu/ops/dtw_pallas.py:405",
+                             report["monthly_launches"]),
     }
     kernels = []
-    for name, (source, replaces) in src.items():
-        main_shape = report[name][0]  # T = 165, the historical collection
+    for name, (source, replaces, path_launches) in src.items():
+        main_shape = report[name][0]
+        bound_ms, bound_by = _bound(*main_shape["work"])
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[name],
+            "launches": path_launches[name],
+            "launches_by_path": {"annual": launches[name],
+                                 "monthly": report["monthly_launches"][name]},
             "max_abs_err": max(r["err"] for r in report[name]),
             "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": main_shape["library_ms"],
         })
     print(json.dumps({"kernels": kernels}))
     print(smi)

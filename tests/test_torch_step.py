@@ -165,7 +165,9 @@ def test_imports_without_jax():
         "bad = [m for m in sys.modules if m == 'bayesian_ensembling_tpu'"
         " or m.startswith('bayesian_ensembling_tpu.')]\n"
         "assert not bad, bad\n"
-        "assert bt.launch_counts() == {'dba_update': 0, 'chol_solve': 0, 'tri_inv': 0}\n"
+        "assert bt.launch_counts() == {'dba_update': 0, 'dba_update_split': 0, 'chol_solve': 0,"
+        " 'tri_inv': 0, 'chol': 0}\n"
+        "assert bt.route_counts() == {'kernel': 0, 'blocked': 0, 'library': 0}\n"
     )
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     proc = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True, text=True, timeout=120)
