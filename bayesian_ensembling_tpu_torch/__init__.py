@@ -7,17 +7,28 @@ JAX package's Pallas TPU kernels on the main path; each has a plain PyTorch
 version beside it, which runs when the tensors are on the CPU.
 
 Main entry points: :func:`ensemble_multi_scenario_step` (the annual
-7-SSP step) and :func:`run_dedup_campaign` (the native-monthly campaign,
-each unique model fitted once).
+7-SSP step; every DBA method, optimiser, fit route and weight kind of the
+JAX step), :func:`run_dedup_campaign` (the native-monthly campaign, each
+unique model fitted once) and :func:`refined_multi_scenario_f64` (the
+float64 posterior and tail at given hyperparameters).
 """
 
 from bayesian_ensembling_tpu_torch import _build
 from bayesian_ensembling_tpu_torch.convert import gp_params_from_jax, gp_params_to_numpy
-from bayesian_ensembling_tpu_torch.ops.dtw import dba_batch
-from bayesian_ensembling_tpu_torch.ops.dtw_cuda import dba_update_batch
+from bayesian_ensembling_tpu_torch.ops.dtw import (
+    dba,
+    dba_batch,
+    dba_subgradient_batch,
+    dtw_pairwise_sq,
+    squared_dtw,
+)
+from bayesian_ensembling_tpu_torch.ops.dtw_cuda import dba_update_batch, squared_dtw_cost_batch
 from bayesian_ensembling_tpu_torch.ops.gp import (
     BatchedGPParams,
     fit_gp_batch,
+    fit_gp_batch_chunked,
+    fit_gp_batch_dispatch,
+    fit_gp_batch_warm_time,
     init_params,
     posterior_marginals_batch,
     prepare_gp_inputs,
@@ -38,26 +49,37 @@ from bayesian_ensembling_tpu_torch.parallel.campaign import (
     run_dedup_campaign,
 )
 from bayesian_ensembling_tpu_torch.parallel.step import (
+    WEIGHT_KINDS,
     chunked_marginals,
     emulate_marginals,
     ensemble_multi_scenario_step,
     ensemble_scenario_step,
+    fused_raw_weights,
     multi_scenario_tail,
     pad_models,
+    refined_multi_scenario_f64,
 )
 
 __all__ = [
     "BatchedGPParams",
     "DedupCampaign",
+    "WEIGHT_KINDS",
     "cholesky_batched",
     "cholesky_solve_fused",
     "chunked_marginals",
+    "dba",
     "dba_batch",
+    "dba_subgradient_batch",
     "dba_update_batch",
+    "dtw_pairwise_sq",
     "emulate_marginals",
     "ensemble_multi_scenario_step",
     "ensemble_scenario_step",
     "fit_gp_batch",
+    "fit_gp_batch_chunked",
+    "fit_gp_batch_dispatch",
+    "fit_gp_batch_warm_time",
+    "fused_raw_weights",
     "gp_params_from_jax",
     "gp_params_to_numpy",
     "init_params",
@@ -72,9 +94,12 @@ __all__ = [
     "pad_unique_axis",
     "posterior_marginals_batch",
     "prepare_gp_inputs",
+    "refined_multi_scenario_f64",
     "reset_launch_counts",
     "route_counts",
     "run_dedup_campaign",
+    "squared_dtw",
+    "squared_dtw_cost_batch",
     "tri_inv_batched",
 ]
 

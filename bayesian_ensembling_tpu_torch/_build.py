@@ -50,11 +50,14 @@ _SIGNATURES = {
     "bet_chol_f64": (2, 2),
     "bet_dba_update_split_f32": (5, 2),
     "bet_dba_update_split_f64": (5, 2),
+    "bet_dtw_cost_f32": (3, 2),
+    "bet_dtw_cost_f64": (3, 2),
 }
 
 # Launches per kernel since the last reset: each wrapper adds one where it
 # launches its kernel, and nowhere else.
-LAUNCHES = {"dba_update": 0, "dba_update_split": 0, "chol_solve": 0, "tri_inv": 0, "chol": 0}
+LAUNCHES = {"dba_update": 0, "dba_update_split": 0, "chol_solve": 0, "tri_inv": 0, "chol": 0,
+            "dtw_cost": 0}
 
 # Batched-linalg calls since the last reset, by the route they took: the
 # kernels or torch.linalg (one per routed call in ops/linalg_cuda.py), or

@@ -1,10 +1,11 @@
-"""The DBA-update kernels (``csrc/dba_update.cu``, ``csrc/dba_update_split.cu``)
-and their plain version.
+"""The DBA-update kernels (``csrc/dba_update.cu``, ``csrc/dba_update_split.cu``),
+the squared-DTW cost kernel (``csrc/dtw_cost.cu``) and their plain versions.
 
-Counterpart of ``bayesian_ensembling_tpu/ops/dtw_pallas.py``'s
-``dba_update_batch(impl=...)``: for each (centre, series) pair, the
-squared-DTW alignment and the aligned-value sums and visit counts per centre
-slot.  Both kernels compute the same function:
+Counterpart of ``bayesian_ensembling_tpu/ops/dtw_pallas.py``.
+:func:`squared_dtw_cost_batch` is the cost of each (centre, series) pair
+alone, with no path.  ``dba_update_batch(impl=...)`` gives, for each pair,
+the squared-DTW alignment's aligned-value sums and visit counts per centre
+slot.  Both DBA-update kernels compute the same function:
 
   * ``"fused"`` (``dba_update.cu``) keeps the move codes in shared memory,
     which caps T (:data:`FUSED_DBA_T_CAP`: 474 in float32);
@@ -13,8 +14,9 @@ slot.  Both kernels compute the same function:
     chip (:data:`SPLIT_DBA_T_CAP`: 11,621 in float32).  It takes the monthly
     T = 1032 and 1980.
 
-CUDA tensors go to the kernels; CPU tensors go to
-:func:`dba_update_batch_reference`, for either impl.
+CUDA tensors go to the kernels; CPU tensors go to the plain versions
+(:func:`dba_update_batch_reference`, for either impl, and
+:func:`squared_dtw_cost_batch_reference`).
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from bayesian_ensembling_tpu_torch import _build
 from bayesian_ensembling_tpu_torch.ops.dtw import _backtrack_accumulate, _dtw_scan
 
 __all__ = [
+    "DTW_COST_T_CAP",
     "FUSED_DBA_T_CAP",
     "SPLIT_DBA_T_CAP",
     "SPLIT_SCRATCH_BYTES",
@@ -34,6 +37,8 @@ __all__ = [
     "dba_update_batch_reference",
     "fused_dba_fits",
     "split_dba_fits",
+    "squared_dtw_cost_batch",
+    "squared_dtw_cost_batch_reference",
 ]
 
 
@@ -43,7 +48,8 @@ def _fused_smem_bytes(t: int, itemsize: int) -> int:
 
 
 def _split_smem_bytes(t: int, itemsize: int) -> int:
-    """``dba_update_split.cu``: the series, the centre and three diagonals."""
+    """``dba_update_split.cu`` and ``dtw_cost.cu``: the series, the centre
+    and three diagonals."""
     return itemsize * (2 * t + 3 * (t + 1))
 
 
@@ -57,6 +63,8 @@ SPLIT_DBA_T_CAP = {
     d: _build.largest_t(lambda t, e=d.itemsize: _split_smem_bytes(t, e))
     for d in (torch.float32, torch.float64)
 }
+# The cost kernel keeps the split kernel's on-chip state, so it has its cap.
+DTW_COST_T_CAP = SPLIT_DBA_T_CAP
 # Bound on the split kernel's move-code scratch: (2T-1) x T bytes per pair
 # (7.8 MB at T = 1980), so one launch takes up to 1,095 pairs at T = 1980
 # (the monthly historical chunk is 28 x 29 = 812) and the wrapper chunks
@@ -152,3 +160,37 @@ def dba_update_batch(
             centers.data_ptr(), series.data_ptr(), sums.data_ptr(), counts.data_ptr(), n, t,
         )
     return sums, counts
+
+
+def squared_dtw_cost_batch_reference(centers: torch.Tensor, series: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch squared-DTW costs: the wavefront DP over all ``N``
+    pairs at once, with no move codes."""
+    return _dtw_scan(centers, series, want_path=False)[0]
+
+
+def squared_dtw_cost_batch(centers: torch.Tensor, series: torch.Tensor) -> torch.Tensor:
+    """Squared-DTW cost of each of ``N`` equal-length alignment problems.
+
+    Args:
+      centers, series: ``(N, T)`` problem pairs.
+
+    Returns:
+      ``(N,)`` costs, cell (T-1, T-1) of each pair's DP; on CUDA the kernel
+      takes float32 or float64 and T up to :data:`DTW_COST_T_CAP`.
+    """
+    if centers.shape != series.shape or centers.dim() != 2:
+        raise ValueError(f"expected two (N, T) tensors, got {centers.shape} and {series.shape}")
+    if centers.device.type == "cpu":
+        return squared_dtw_cost_batch_reference(centers, series)
+    _build.check_cuda("squared_dtw_cost_batch", centers, series)
+    n, t = centers.shape
+    symbol = f"bet_dtw_cost_{_build.symbol_suffix(centers.dtype)}"
+    if t > DTW_COST_T_CAP[centers.dtype]:
+        raise ValueError(
+            f"T={t} exceeds the DTW cost kernel's shared-memory cap "
+            f"({DTW_COST_T_CAP[centers.dtype]} in {centers.dtype}; it needs "
+            f"{_split_smem_bytes(t, centers.element_size())} bytes of the {_build.SMEM_BYTES})"
+        )
+    out = torch.empty((n,), dtype=centers.dtype, device=centers.device)
+    _build.launch("dtw_cost", symbol, centers.data_ptr(), series.data_ptr(), out.data_ptr(), n, t)
+    return out

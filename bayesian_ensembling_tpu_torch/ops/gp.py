@@ -1,10 +1,11 @@
 """Batched exact Gaussian-process regression with known heteroskedastic noise.
 
-PyTorch counterpart of ``bayesian_ensembling_tpu/ops/gp.py``, main-path
-subset: the softplus hyperparameters, the Matern-3/2 and RBF kernels with
+PyTorch counterpart of ``bayesian_ensembling_tpu/ops/gp.py``, batched
+surface: the softplus hyperparameters, the Matern-3/2 and RBF kernels with
 the distance statistic hoisted out of the optimisation loop, the DBA
-preamble, the batched Adam fit on the exact NLML, and the posterior
-marginals.
+preamble (classic or subgradient DBA), the batched fit on the exact NLML
+(Adam or the per-model damped BFGS; merged, host-chunked or coarse-to-fine
+in time) and the posterior marginals.
 
     nlml = 0.5 y^T (K + D)^-1 y + 0.5 logdet(K + D) + T/2 log 2pi
 
@@ -14,7 +15,9 @@ runs on the device its inputs are on.
 
 from __future__ import annotations
 
+import functools
 import math
+import types
 import typing as tp
 import warnings
 
@@ -33,6 +36,9 @@ __all__ = [
     "get_kernel_precomputed",
     "prepare_gp_inputs",
     "fit_gp_batch",
+    "fit_gp_batch_segment",
+    "fit_gp_batch_chunked",
+    "fit_gp_batch_warm_time",
     "fit_gp_batch_dispatch",
     "posterior_marginals_batch",
 ]
@@ -132,17 +138,27 @@ def prepare_gp_inputs(
 ):
     """DBA target mean, known noise and feature matrix of each model.
 
-    (a) masked classic-DBA barycentre -> target ``y_mean`` ``(M, T)``;
+    (a) masked DBA barycentre -> target ``y_mean`` ``(M, T)``;
     (b) masked across-realisation variance, floored at 1e-8 -> ``y_var``;
     (c) the realisations time-major -> features ``x`` ``(M, T, R)``.
+
+    ``dba_method="classic"`` runs ``dba_iterations`` classic DBA updates
+    from the mean (``dba_tol`` makes the count a cap with movement-based
+    stopping); ``"subgradient"`` runs the stochastic subgradient DBA the
+    reference flagship calls, with ``max_iter=dba_iterations`` epochs (the
+    reference passes 50) and ``tol=dba_tol`` (1e-3 when omitted).
     """
-    if dba_method == "subgradient":
-        raise not_ported("dba_method='subgradient'", "A6")
-    if dba_method != "classic":
+    if dba_method == "classic":
+        y_mean = dtw_ops.dba_batch(block, mask, n_iterations=dba_iterations, init="mean",
+                                   tol=dba_tol)
+    elif dba_method == "subgradient":
+        y_mean = dtw_ops.dba_subgradient_batch(
+            block, mask, max_iter=dba_iterations, tol=1e-3 if dba_tol is None else dba_tol
+        )
+    else:
         raise ValueError(f"dba_method must be 'classic' or 'subgradient', got {dba_method!r}")
     w = mask.to(block.dtype)
     n = torch.clamp(torch.sum(w, dim=1), min=1.0)
-    y_mean = dtw_ops.dba_batch(block, mask, n_iterations=dba_iterations, init="mean", tol=dba_tol)
     mu_r = torch.einsum("mrt,mr->mt", block, w) / n[:, None]
     dev = block - mu_r[:, None, :]
     y_var = torch.einsum("mrt,mr->mt", dev * dev, w) / n[:, None]
@@ -152,27 +168,210 @@ def prepare_gp_inputs(
 
 
 class _Adam:
-    """``optax.adam(lr)`` (b1=0.9, b2=0.999, eps=1e-8) on a list of tensors,
-    written out so that each update follows optax's order of operations."""
+    """``optax.adam(lr)`` (b1=0.9, b2=0.999, eps=1e-8) state for a list of
+    tensors, written out so that each update follows optax's order of
+    operations."""
 
     def __init__(self, params: tp.Sequence[torch.Tensor], lr: float,
                  b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
-        self.params = list(params)
         self.lr, self.b1, self.b2, self.eps = lr, b1, b2, eps
-        self.mu = [torch.zeros_like(p) for p in self.params]
-        self.nu = [torch.zeros_like(p) for p in self.params]
+        self.mu = [torch.zeros_like(p) for p in params]
+        self.nu = [torch.zeros_like(p) for p in params]
         self.count = 0
 
     @torch.no_grad()
-    def step(self, grads: tp.Sequence[torch.Tensor]) -> None:
+    def step(self, params: tp.Sequence[torch.Tensor], grads: tp.Sequence[torch.Tensor]) -> None:
         self.count += 1
         c1 = 1.0 - self.b1 ** self.count
         c2 = 1.0 - self.b2 ** self.count
-        for p, g, mu, nu in zip(self.params, grads, self.mu, self.nu):
+        for p, g, mu, nu in zip(params, grads, self.mu, self.nu):
             mu.copy_((1.0 - self.b1) * g + self.b1 * mu)
             nu.copy_((1.0 - self.b2) * (g * g) + self.b2 * nu)
             upd = (mu / c1) / (torch.sqrt(nu / c2) + self.eps)
             p.add_(upd * -self.lr)
+
+
+class _BatchBFGS:
+    """State of the per-model damped quasi-Newton optimiser
+    (``optimizer="bfgs"``; the step lives in :func:`_build_batch_step`).
+
+    Each model owns its 2x2 BFGS Hessian approximation, a Levenberg-style
+    damping scalar and the delayed curvature pair of its last accepted step;
+    nothing couples the batch."""
+
+    def __init__(self, params: BatchedGPParams):
+        m = params.raw_lengthscale.shape[0]
+        like = dict(dtype=params.raw_lengthscale.dtype, device=params.raw_lengthscale.device)
+        self.hess = torch.eye(2, **like).expand(m, 2, 2).clone()  # B ~ Hessian
+        self.lam = torch.ones((m,), **like)  # damping
+        self.s_pend = torch.zeros((m, 2), **like)  # pending accepted step s
+        self.g_prev = torch.zeros((m, 2), **like)  # gradient at the previous iterate
+        self.pend_ok = torch.zeros((m,), dtype=torch.bool, device=like["device"])
+
+
+def _make_batch_opt(optimizer: str, learning_rate: float, params: BatchedGPParams):
+    """The optimiser state of every batched-fit entry point (one place, so
+    the merged fit and the host-chunked segments cannot drift)."""
+    if optimizer == "adam":
+        return _Adam(list(params.parameters()), learning_rate)
+    if optimizer == "bfgs":
+        return _BatchBFGS(params)
+    if optimizer == "lbfgs":
+        raise not_ported("optimizer='lbfgs' (optax L-BFGS with a zoom line search)", "A6b")
+    raise ValueError(f"unknown optimizer {optimizer!r}")
+
+
+def _build_batch_step(x, y, noise_var, kernel_name, jitter, optimizer):
+    """The per-iteration step of the batched NLML optimisation,
+    ``step(params, opt) -> per-model NLML (M,)`` at the iterate, updating
+    ``params`` and the optimiser state ``opt`` in place.
+
+    Shared by :func:`fit_gp_batch` and :func:`fit_gp_batch_segment`, so a
+    fit split into segments runs the exact same step sequence as the merged
+    one.  ``linalg_cuda.linalg_path(T, b=M, dtype)`` picks the NLML once, as
+    the JAX package does: the recursive blocked NLML on the blocked route,
+    else ``linalg_cuda.nlml_terms``.
+    """
+    m, t, _ = x.shape
+    precompute, apply_fn = get_kernel_precomputed(kernel_name)
+    stat = precompute(x, x)  # hyperparameter-independent: hoisted out of the loop
+    diag_noise = torch.diag_embed(noise_var)
+    jitter_eye = jitter * torch.eye(t, dtype=y.dtype, device=y.device)
+    if linalg_cuda.linalg_path(t, b=m, dtype=y.dtype) == "blocked":
+        nlml = nlml_terms_blocked
+    else:
+        nlml = linalg_cuda.nlml_terms
+
+    def nlml_vec(params):
+        ky = apply_fn(params, stat) + diag_noise + jitter_eye
+        quad, logdet = nlml(ky, y)
+        return 0.5 * (quad + logdet + t * _LOG_2PI)
+
+    def value_and_grad(params):
+        leaves = [params.raw_lengthscale, params.raw_variance]
+        per_model = nlml_vec(params)
+        return per_model.detach(), torch.autograd.grad(per_model.sum(), leaves)
+
+    if optimizer == "adam":
+
+        def step(params, opt):
+            per_model, grads = value_and_grad(params)
+            opt.step([params.raw_lengthscale, params.raw_variance], grads)
+            return per_model
+
+        return step
+
+    if optimizer != "bfgs":
+        raise ValueError(f"unknown optimizer {optimizer!r}")
+    init_v = torch.tensor([_softplus_inv(1.0)] * 2, dtype=y.dtype, device=y.device)
+    eye2 = torch.eye(2, dtype=y.dtype, device=y.device)
+
+    def step(params, opt):
+        # One value and gradient at the iterate and one value-only proposal
+        # per step; each model solves its own damped 2x2 system and accepts
+        # or rejects on its own.  The BFGS update is delayed one step: the
+        # pair (s, y) needs the gradient at the accepted proposal, which is
+        # this step's gradient.
+        per_model, grads = value_and_grad(params)
+        with torch.no_grad():
+            g = torch.stack(grads, dim=-1)
+            yv = g - opt.g_prev
+            sy = torch.sum(opt.s_pend * yv, dim=-1)
+            # Scale-relative curvature test: s^T y > 1e-8 |y|^2 bounds the
+            # rank-one term |y|^2 / s^T y at 1e8, which damping dominates.
+            y_sq = torch.sum(yv * yv, dim=-1)
+            ok = opt.pend_ok & (sy > 1e-8 * y_sq) & (sy > 1e-12)
+            bs = torch.einsum("mij,mj->mi", opt.hess, opt.s_pend)
+            sbs = torch.clamp(torch.sum(opt.s_pend * bs, dim=-1), min=1e-30)
+            upd = (
+                opt.hess
+                - bs[:, :, None] * bs[:, None, :] / sbs[:, None, None]
+                + yv[:, :, None] * yv[:, None, :] / torch.clamp(sy, min=1e-30)[:, None, None]
+            )
+            hess = torch.where(ok[:, None, None], upd, opt.hess)
+            # Damped closed-form 2x2 solve: (B + lambda I) delta = -g.
+            a = hess[:, 0, 0] + opt.lam
+            b = hess[:, 0, 1]
+            c = hess[:, 1, 0]
+            d = hess[:, 1, 1] + opt.lam
+            det = a * d - b * c
+            delta = torch.stack(
+                [(-g[:, 0] * d + g[:, 1] * b) / det, (g[:, 0] * c - g[:, 1] * a) / det], dim=-1
+            )
+            v = torch.stack([params.raw_lengthscale, params.raw_variance], dim=-1)
+            prop = v + delta
+            f_prop = nlml_vec(types.SimpleNamespace(
+                lengthscale=softplus(prop[:, 0]), variance=softplus(prop[:, 1])))
+            accept = torch.isfinite(f_prop) & (f_prop < per_model)
+            new_v = torch.where(accept[:, None], prop, v)
+            # NaN rescue: a model whose current objective is non-finite can
+            # never improve (every comparison with NaN is False); reset it to
+            # the scratch init with a fresh optimiser state.
+            stuck = ~torch.isfinite(per_model)
+            new_v = torch.where(stuck[:, None], init_v[None, :], new_v)
+            params.raw_lengthscale.copy_(new_v[:, 0])
+            params.raw_variance.copy_(new_v[:, 1])
+            opt.hess = torch.where(stuck[:, None, None], eye2[None], hess)
+            lam = torch.clamp(torch.where(accept, opt.lam * 0.5, opt.lam * 4.0), 1e-8, 1e10)
+            opt.lam = torch.where(stuck, 1.0, lam)
+            accept = accept & ~stuck
+            opt.s_pend = torch.where(accept[:, None], delta, 0.0)
+            opt.g_prev = g
+            opt.pend_ok = accept
+        return per_model
+
+    return step
+
+
+def _start_params(m: int, y: torch.Tensor, init: tp.Optional[BatchedGPParams]) -> BatchedGPParams:
+    """The scratch initialisation, or a copy of ``init`` on ``y``'s device
+    and dtype (the caller's parameters are never modified)."""
+    if init is None:
+        return init_params(m, device=y.device, dtype=y.dtype)
+    return BatchedGPParams(
+        init.raw_lengthscale.detach().to(y.device, y.dtype, copy=True),
+        init.raw_variance.detach().to(y.device, y.dtype, copy=True),
+    )
+
+
+def _warn_non_finite(losses: torch.Tensor, t: int, optimizer: str) -> None:
+    """Warn, naming them, about the models whose NLML went non-finite (a
+    Gram that is not positive definite in the working precision)."""
+    bad = torch.nonzero(~torch.isfinite(losses).all(dim=1)).flatten().tolist()
+    if bad:
+        fate = ("bfgs reset them to the scratch initialisation" if optimizer == "bfgs"
+                else "their fitted hyperparameters are not usable")
+        warnings.warn(
+            f"fit_gp_batch: the NLML of model(s) {bad} of {losses.shape[0]} went non-finite at "
+            f"T={t} ({losses.dtype}); {fate}",
+            stacklevel=3,
+        )
+
+
+def fit_gp_batch_segment(
+    x: torch.Tensor,
+    y: torch.Tensor,
+    noise_var: torch.Tensor,
+    params: BatchedGPParams,
+    opt_state,
+    kernel_name: str = "matern32",
+    n_steps: int = 250,
+    jitter: float = 1e-6,
+    optimizer: str = "adam",
+):
+    """One ``n_steps``-long segment of the batched fit, carrying the
+    optimiser state: the building block of :func:`fit_gp_batch` and
+    :func:`fit_gp_batch_chunked`.  ``params`` and ``opt_state`` (from
+    ``_make_batch_opt``, which holds the learning rate) are updated in
+    place.
+
+    Returns ``(params, opt_state, losses (M, n_steps))``.
+    """
+    step = _build_batch_step(x, y, noise_var, kernel_name, jitter, optimizer)
+    losses = torch.empty((n_steps, x.shape[0]), dtype=y.dtype, device=y.device)
+    for it in range(n_steps):
+        losses[it] = step(params, opt_state)
+    return params, opt_state, losses.T
 
 
 def fit_gp_batch(
@@ -186,17 +385,13 @@ def fit_gp_batch(
     optimizer: str = "adam",
     init: tp.Optional[BatchedGPParams] = None,
 ) -> tp.Tuple[BatchedGPParams, torch.Tensor]:
-    """Fit ``M`` independent GPs with Adam on the summed exact NLML.
+    """Fit ``M`` independent GPs on the summed exact NLML.
 
     The models are independent, so the gradient of the sum is each model's
-    own gradient.  ``linalg_cuda.linalg_path(T, b=M, dtype)`` picks the NLML
-    once per fit, as the JAX package does: the recursive blocked NLML
-    (``ops/linalg_blocked.py``) on the blocked route, else
-    ``linalg_cuda.nlml_terms`` (the Cholesky-solve and triangular-inverse
-    kernels within their size cap, torch.linalg beyond).  A model whose loss
-    goes non-finite (a Gram that is not positive definite in the working
-    precision) draws a warning naming it; the fit itself goes on, as in the
-    JAX package.
+    own gradient.  ``optimizer="adam"`` (the reference's) or ``"bfgs"``
+    (per-model damped quasi-Newton in the two raw hyperparameters, which
+    converges in about 30 steps).  A model whose loss goes non-finite draws
+    a warning naming it; the fit itself goes on, as in the JAX package.
 
     Args:
       x: ``(M, T, D)`` feature matrices.  y: ``(M, T)`` DBA means.
@@ -208,42 +403,99 @@ def fit_gp_batch(
     Returns:
       (fitted params, losses ``(M, n_optim_nits)``).
     """
-    if optimizer != "adam":
-        raise not_ported(f"optimizer={optimizer!r}", "A6")
-    m, t, _ = x.shape
-    precompute, apply_fn = get_kernel_precomputed(kernel_name)
-    stat = precompute(x, x)
-    diag_noise = torch.diag_embed(noise_var)
-    jitter_eye = jitter * torch.eye(t, dtype=y.dtype, device=y.device)
-    if init is None:
-        params = init_params(m, device=y.device, dtype=y.dtype)
-    else:
-        params = BatchedGPParams(
-            init.raw_lengthscale.detach().to(y.device, y.dtype, copy=True),
-            init.raw_variance.detach().to(y.device, y.dtype, copy=True),
+    params = _start_params(x.shape[0], y, init)
+    opt = _make_batch_opt(optimizer, learning_rate, params)
+    params, _, losses = fit_gp_batch_segment(
+        x, y, noise_var, params, opt, kernel_name=kernel_name, n_steps=n_optim_nits,
+        jitter=jitter, optimizer=optimizer,
+    )
+    _warn_non_finite(losses, x.shape[1], optimizer)
+    return params, losses
+
+
+def fit_gp_batch_chunked(
+    x: torch.Tensor,
+    y: torch.Tensor,
+    noise_var: torch.Tensor,
+    kernel_name: str = "matern32",
+    n_optim_nits: int = 500,
+    learning_rate: float = 0.01,
+    jitter: float = 1e-6,
+    optimizer: str = "adam",
+    init: tp.Optional[BatchedGPParams] = None,
+    chunk_steps: int = 250,
+) -> tp.Tuple[BatchedGPParams, torch.Tensor]:
+    """:func:`fit_gp_batch` as a host loop of segments of ``chunk_steps``
+    steps, each ended by a device synchronisation.
+
+    The optimiser state carries across segments, so the result equals the
+    merged fit's bit for bit; each segment bounds one uninterrupted stretch
+    of device work.
+    """
+    if chunk_steps <= 0:
+        raise ValueError(
+            f"chunk_steps must be positive, got {chunk_steps} (the host loop would never advance)"
         )
-    leaves = list(params.parameters())
-    opt = _Adam(leaves, learning_rate)
-    if linalg_cuda.linalg_path(t, b=m, dtype=y.dtype) == "blocked":
-        nlml = nlml_terms_blocked
-    else:
-        nlml = linalg_cuda.nlml_terms
-    losses = torch.empty((n_optim_nits, m), dtype=y.dtype, device=y.device)
-    for it in range(n_optim_nits):
-        ky = apply_fn(params, stat) + diag_noise + jitter_eye
-        quad, logdet = nlml(ky, y)
-        per_model = 0.5 * (quad + logdet + t * _LOG_2PI)
-        grads = torch.autograd.grad(per_model.sum(), leaves)
-        opt.step(grads)
-        losses[it] = per_model.detach()
-    bad = torch.nonzero(~torch.isfinite(losses).all(dim=0)).flatten().tolist()
-    if bad:
-        warnings.warn(
-            f"fit_gp_batch: the NLML of model(s) {bad} of {m} went non-finite at T={t} "
-            f"({y.dtype}); their fitted hyperparameters are not usable",
-            stacklevel=2,
+    params = _start_params(x.shape[0], y, init)
+    opt = _make_batch_opt(optimizer, learning_rate, params)
+    losses = []
+    done = 0
+    while done < n_optim_nits:
+        k = min(chunk_steps, n_optim_nits - done)
+        params, opt, seg = fit_gp_batch_segment(
+            x, y, noise_var, params, opt, kernel_name=kernel_name, n_steps=k,
+            jitter=jitter, optimizer=optimizer,
         )
-    return params, losses.T
+        if seg.is_cuda:
+            torch.cuda.synchronize(seg.device)  # bound each stretch of device work
+        losses.append(seg)
+        done += k
+    losses = torch.cat(losses, dim=1) if losses else y.new_empty((x.shape[0], 0))
+    _warn_non_finite(losses, x.shape[1], optimizer)
+    return params, losses
+
+
+def fit_gp_batch_warm_time(
+    x: torch.Tensor,
+    y: torch.Tensor,
+    noise_var: torch.Tensor,
+    kernel_name: str = "matern32",
+    time_stride: int = 12,
+    coarse_steps: int = 500,
+    fine_steps: int = 100,
+    learning_rate: float = 0.01,
+    jitter: float = 1e-6,
+    optimizer: str = "adam",
+    init: tp.Optional[BatchedGPParams] = None,
+    chunk_steps: tp.Optional[int] = None,
+) -> tp.Tuple[BatchedGPParams, torch.Tensor]:
+    """Coarse-to-fine in time: ``coarse_steps`` steps on every
+    ``time_stride``-th timestep (``init`` seeds them), then ``fine_steps``
+    steps at full T warm-started from the coarse optimum (host-chunked when
+    ``chunk_steps`` is given; the coarse pass is always merged).
+
+    Returns ``(params, losses (M, coarse_steps + fine_steps))``; the two
+    loss segments are NLMLs of series of different length.
+    """
+    if time_stride < 1:
+        raise ValueError(f"time_stride must be >= 1, got {time_stride}")
+    if fine_steps <= 0:
+        raise ValueError(f"fine_steps must be positive, got {fine_steps}")
+    kw = dict(kernel_name=kernel_name, learning_rate=learning_rate, jitter=jitter,
+              optimizer=optimizer)
+    fit = (functools.partial(fit_gp_batch_chunked, chunk_steps=chunk_steps)
+           if chunk_steps is not None else fit_gp_batch)
+    if time_stride == 1:
+        # Degenerate stride: coarse == fine resolution, run the total.
+        return fit(x, y, noise_var, n_optim_nits=coarse_steps + fine_steps, init=init, **kw)
+    coarse_params, coarse_losses = fit_gp_batch(
+        x[:, ::time_stride, :].contiguous(),
+        y[:, ::time_stride].contiguous(),
+        noise_var[:, ::time_stride].contiguous(),
+        n_optim_nits=coarse_steps, init=init, **kw,
+    )
+    params, fine_losses = fit(x, y, noise_var, n_optim_nits=fine_steps, init=coarse_params, **kw)
+    return params, torch.cat([coarse_losses, fine_losses], dim=1)
 
 
 def fit_gp_batch_dispatch(
@@ -260,28 +512,39 @@ def fit_gp_batch_dispatch(
     fine_steps: tp.Optional[int] = None,
     chunk_steps: tp.Optional[int] = None,
 ) -> tp.Tuple[BatchedGPParams, torch.Tensor]:
-    """The scratch route of the JAX package's fit dispatch: one fit of
-    ``n_optim_nits`` steps.  The coarse-to-fine and chunked routes raise."""
+    """The one owner of the scratch / coarse-to-fine / chunked fit routing:
+
+    - ``time_stride == 1``: a scratch fit of ``n_optim_nits`` steps
+      (``fine_steps`` must be None), merged, or host-chunked when
+      ``chunk_steps`` is given;
+    - ``time_stride > 1``: :func:`fit_gp_batch_warm_time` with
+      ``n_optim_nits`` coarse steps and ``fine_steps`` (required) fine ones;
+    - ``time_stride < 1`` raises.
+    """
     if time_stride < 1:
         raise ValueError(f"time_stride must be >= 1, got {time_stride}")
+    kw = dict(kernel_name=kernel_name, learning_rate=learning_rate, jitter=jitter,
+              optimizer=optimizer, init=init)
     if time_stride > 1:
-        raise not_ported("time_stride > 1 (coarse-to-fine in time)", "A6")
+        if fine_steps is None:
+            raise ValueError(
+                "time_stride > 1 requires fine_steps (the number of "
+                "full-resolution warm-started optimisation steps)"
+            )
+        return fit_gp_batch_warm_time(
+            x, y, noise_var, time_stride=time_stride, coarse_steps=n_optim_nits,
+            fine_steps=fine_steps, chunk_steps=chunk_steps, **kw,
+        )
     if fine_steps is not None:
         raise ValueError(
             "fine_steps was given without time_stride > 1 — it only "
             "applies to the coarse-to-fine-in-time fit"
         )
     if chunk_steps is not None:
-        raise not_ported("chunk_steps (host-chunked fit)", "A6")
-    return fit_gp_batch(
-        x, y, noise_var,
-        kernel_name=kernel_name,
-        n_optim_nits=n_optim_nits,
-        learning_rate=learning_rate,
-        jitter=jitter,
-        optimizer=optimizer,
-        init=init,
-    )
+        return fit_gp_batch_chunked(
+            x, y, noise_var, n_optim_nits=n_optim_nits, chunk_steps=chunk_steps, **kw
+        )
+    return fit_gp_batch(x, y, noise_var, n_optim_nits=n_optim_nits, **kw)
 
 
 @torch.no_grad()

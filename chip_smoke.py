@@ -12,7 +12,10 @@ Phases, in order; any failure exits non-zero:
 2. Build: compiles the CUDA kernels in ``bayesian_ensembling_tpu_torch/csrc``
    with nvcc for sm_90a (into ``build/torch_kernels/``) and loads them.
 3. Kernels against their plain PyTorch versions at the main paths' shapes:
-   the DBA update (N = 3,248 pairs, T = 165 and 86, exact), the fused
+   the squared-DTW cost (exact, float32 and float64: the subgradient DBA's
+   epoch cost, N = 3,248 at T = 165 and 86; the medoid init's pairs,
+   N = 45,472 at T = 165; the monthly N = 812 at T = 1980; T = 1), the DBA
+   update (N = 3,248 pairs, T = 165 and 86, exact), the fused
    Cholesky-solve and the triangular inverse (B = 112, T = 165 and 86), and
    one non-positive-definite input that must come back NaN; then the
    monthly path's kernels: the split DBA update (exact, at the monthly
@@ -27,7 +30,12 @@ Phases, in order; any failure exits non-zero:
    realisations, T = 165 / 86, 200 observation members), float32 on the card
    through the kernels, with every launch counter checked; then the same
    inputs in float64 through the plain versions on the CPU, and the
-   barycentre mean and std must agree within 0.01 degC pointwise.
+   barycentre mean and std must agree within 0.01 degC pointwise.  At the
+   float32 run's marginals (recomputed through ``emulate_marginals``, which
+   must give the step's output bit for bit), the tail of every weight kind
+   on the card against float64 on the CPU (weights within 1e-4, moments
+   within 0.01 degC), and ``refined_multi_scenario_f64`` on the card
+   against the CPU at the fitted hyperparameters and targets (1e-5 degC).
 5. Timing of the faithful workload (2,000 Adam steps, 10 DBA iterations):
    median wall time of the step, and a per-stage split.
 6. The native-monthly dedup campaign, ``run_dedup_campaign``, on synthetic
@@ -39,6 +47,21 @@ Phases, in order; any failure exits non-zero:
    float64 on the card (the library route for every fit) as the reference,
    within 0.01 degC; then the median wall time of 3 float32 runs and a
    per-stage split.
+7. The reference-faithful DBA: the step with the subgradient DBA (50
+   epochs, tol 1e-3) at the flagship shape, float32 against float64 on the
+   card (0.01 degC), with the DTW cost and DBA-update launches checked
+   against the epochs ``dba_subgradient_batch`` reports; the medoid
+   ``dba_batch`` float32 against float64 (one cost launch, 10 updates);
+   then the median wall time of the subgradient step at 2,000 Adam steps
+   and its DBA stage.
+8. The bench's fast fit routes at the flagship shape: coarse-to-fine in
+   time (stride 12, 1,000 coarse and 250 fine steps) against float64 on the
+   card (0.01 degC); the per-model BFGS at 30 steps, whose distance to a
+   10,000-step Adam truth may be at most 1.05 times the 2,000-step Adam
+   run's (where it is not, the rule must hold once the models that the
+   BFGS strands on the plateau of ROADMAP C7 take the truth's fits, and
+   the script names them); the chunked fit (chunks of 250) against phase 4's merged fit, bit
+   for bit; median wall times of 3 runs.
 
 The last lines are a JSON summary of the kernels, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -72,6 +95,17 @@ MONTHLY_NITS, MONTHLY_REPS = 500, 3
 # largest entry: float32 round-off of the Cholesky of a Gram whose condition
 # number is about 1e5 (T / noise).
 BLOCKED_TOL = 1e-2
+
+# The reference-faithful DBA (the flagship's subgradient DBA, 50 epochs) and
+# the bench's fast fit routes (bench.py:353-410).
+SUBGRADIENT_EPOCHS = 50
+WARM_NITS, WARM_KW = 1000, dict(time_stride=12, fine_steps=250)
+BFGS_NITS, BFGS_KW = 30, dict(optimizer="bfgs")
+TRUTH_NITS = 10_000  # the converged truth of the bfgs closeness gate
+BFGS_SLACK = 1.05
+CHUNK_STEPS = 250
+WEIGHT_TOL = 1e-4  # float32 tail vs float64 at the same marginals
+REFINED_DEGC = 1e-5  # refined moments, card vs CPU (bench.py:539)
 
 # Peak rates of one H100 SXM (NVIDIA's data sheet) for the kernels' bounds.
 HBM_BYTES_PER_S = 3.35e12
@@ -185,6 +219,12 @@ def _dba_work(n, t, e=4):
     return 4 * n * t * e, 5 * n * t * t
 
 
+def _cost_work(n, t, e=4):
+    """Centres and series read, one cost written; 5 operations per DP cell,
+    as for the DBA update."""
+    return (2 * n * t + n) * e, 5 * n * t * t
+
+
 def _triangle_work(b, t, e=4):
     """The Cholesky (K to L) or the triangular inverse (L to W): the lower
     triangle of one T x T matrix read (all either kernel reads) and the whole
@@ -293,10 +333,35 @@ def check_kernels(torch, inputs, dev, report):
     return ok
 
 
-def run_slice(torch, bt, inputs, dev, dtype, nits):
-    tensors = [torch.tensor(a, dtype=torch.bool if a.dtype == bool else dtype, device=dev)
-               for a in inputs]
-    return bt.ensemble_multi_scenario_step(*tensors, n_optim_nits=nits, dba_iterations=10)
+def _tensors(torch, arrays, dev, dtype):
+    return [torch.tensor(a, dtype=torch.bool if a.dtype == bool else dtype, device=dev)
+            for a in arrays]
+
+
+def run_slice(torch, bt, inputs, dev, dtype, nits, **kw):
+    kw.setdefault("dba_iterations", 10)
+    return bt.ensemble_multi_scenario_step(*_tensors(torch, inputs, dev, dtype), n_optim_nits=nits,
+                                           **kw)
+
+
+def _collections(torch, inputs, dev, dtype):
+    """The merged (S*M, R, T) historical and SSP blocks and masks."""
+    hb, hm, sb, sm, _, _ = _tensors(torch, inputs, dev, dtype)
+    return [(hb.reshape(S * M, R, -1), hm.reshape(S * M, R)),
+            (sb.reshape(S * M, R, -1), sm.reshape(S * M, R))]
+
+
+def _tail(torch, bt, inputs, marg, dev, dtype, **kw):
+    """The multi-scenario tail at given marginals ``[(mean, var), (mean, var)]``
+    of the merged collections."""
+    hb, hm, _, _, obs, mm = _tensors(torch, inputs, dev, dtype)
+    (hmu, hvar), (smu, svar) = [(a.to(dev, dtype).reshape(S, M, -1), b.to(dev, dtype).reshape(S, M, -1))
+                                for a, b in marg]
+    return bt.multi_scenario_tail(hmu, hvar, smu, svar, obs, hb, hm, mm, **kw)
+
+
+def _moments_gap(got, want):
+    return max(_abs(got[0], want[0]), _abs(got[1], want[1]))
 
 
 def stage_split(torch, bt, inputs, dev, nits):
@@ -585,7 +650,7 @@ def run_monthly(torch, bt, dev, seed, report):
     n_leaves = -(-T_SSP_M // lb.DEFAULT_BLOCK)  # the blocked NLML's leaves: 9 at T = 1032
     n_chunks = -(-pack.uh.shape[0] // HIST_CHUNK)
     expected = {"dba_update": 0, "dba_update_split": 2 * 10, "chol_solve": 0,
-                "tri_inv": n_leaves * MONTHLY_NITS, "chol": n_leaves * MONTHLY_NITS}
+                "tri_inv": n_leaves * MONTHLY_NITS, "chol": n_leaves * MONTHLY_NITS, "dtw_cost": 0}
     # One blocked NLML per SSP fit step; on the library route, a factorisation
     # and a triangular inverse per historical fit step and per posterior.
     expected_routes = {"kernel": 0, "blocked": MONTHLY_NITS,
@@ -631,6 +696,291 @@ def run_monthly(torch, bt, dev, seed, report):
     return True
 
 
+def check_cost_kernel(torch, inputs, pack, dev, report):
+    """Phase 3, B7: the squared-DTW cost kernel against its plain version,
+    bit for bit, in float32 and float64, at the shapes its paths give it."""
+    from bayesian_ensembling_tpu_torch.ops import dtw_cuda
+    from bayesian_ensembling_tpu_torch.parallel.campaign import pad_unique_axis
+
+    hb, hm, sb, sm, _, _ = inputs
+    uh, um = pad_unique_axis(pack.uh, pack.um, HIST_CHUNK)
+    iu, ju = np.triu_indices(R, k=1)
+    hist3 = hb.reshape(S * M, R, -1)
+    cases = [
+        ("subgradient epoch cost, hist", *_epoch_pairs(hb, hm)),
+        ("medoid pairs, hist", hist3[:, iu].reshape(-1, T_HIST), hist3[:, ju].reshape(-1, T_HIST)),
+        ("subgradient epoch cost, ssp", *_epoch_pairs(sb, sm)),
+        ("monthly hist chunk", *_epoch_pairs(uh, um)),
+        ("T = 1", *(a[:, :1] for a in _epoch_pairs(hb, hm))),
+    ]
+    ok = True
+    for label, centers_np, series_np in cases:
+        for dtype in (torch.float32, torch.float64):
+            centers = torch.tensor(centers_np, dtype=dtype, device=dev).contiguous()
+            series = torch.tensor(series_np, dtype=dtype, device=dev).contiguous()
+            n, t = series.shape
+            got = dtw_cuda.squared_dtw_cost_batch(centers, series)
+            want = dtw_cuda.squared_dtw_cost_batch_reference(centers, series)
+            torch.cuda.synchronize()
+            exact = torch.equal(got, want)
+            err = _abs(got, want)
+            reps = 20 if n * t * t < 2e9 else 5
+            ms = _cuda_ms(torch, lambda: dtw_cuda.squared_dtw_cost_batch(centers, series), reps)
+            plain_ms = _cuda_ms(torch, lambda: dtw_cuda.squared_dtw_cost_batch_reference(centers, series), 1)
+            work = _cost_work(n, t, centers.element_size())
+            bound_ms, bound_by = _bound(*work)
+            log(f"  dtw_cost {label} N={n} T={t} {str(dtype)[6:]}: exact={exact} max_abs_err={err:.3e} "
+                f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+            ok &= exact
+            if dtype == torch.float32:
+                report["dtw_cost"].append(dict(t=t, n=n, err=err, ms=ms, plain_ms=plain_ms,
+                                               work=work, library_ms=None))
+            else:
+                report["dtw_cost_f64"].append(dict(t=t, n=n, err=err, ms=ms, plain_ms=plain_ms))
+            del centers, series, got, want
+    torch.cuda.empty_cache()
+    return ok
+
+
+def _epoch_pairs(block, mask):
+    """(centres, series) of an epoch cost: every realisation of a stack
+    ``(..., R, T)`` paired with its model's masked mean."""
+    r, t = block.shape[-2:]
+    b3 = block.reshape(-1, r, t)
+    w = mask.reshape(-1, r).astype(float)
+    centers = (b3 * w[:, :, None]).sum(1) / np.maximum(w.sum(1, keepdims=True), 1.0)
+    return np.repeat(centers, r, axis=0), b3.reshape(-1, t)
+
+
+def _staged(torch, bt, inputs, dev, nits, **kw):
+    """The float32 step through ``emulate_marginals`` with the fitted
+    hyperparameters and targets kept: (tail output, per collection
+    ``(mean, var, params, y_mean, y_var)``)."""
+    ems = [bt.emulate_marginals(block, mask, n_optim_nits=nits, dba_iterations=10,
+                                return_params=True, return_targets=True, **kw)
+           for block, mask in _collections(torch, inputs, dev, torch.float32)]
+    return _tail(torch, bt, inputs, [(mu, var) for mu, var, *_ in ems], dev, torch.float32), ems
+
+
+def _nlml(bt, block, em):
+    """Each model's NLML at the fitted hyperparameters of one emulation of
+    ``block`` (the value at the start of a one-step fit from them)."""
+    _, _, params, y, v = em
+    return bt.fit_gp_batch(block.transpose(1, 2), y, v, n_optim_nits=1, init=params)[1][:, 0]
+
+
+# A BFGS fit stranded on the degenerate plateau of ROADMAP C7: a signal
+# variance below softplus(-10) = 4.5e-5 and an NLML worse than the truth's.
+C7_RAW_VARIANCE, C7_NLML_GAP = -10.0, 1.0
+
+
+def _bfgs_gate(torch, bt, inputs, dev, bfgs, truth, scratch_out):
+    """The bench's closeness rule for bfgs-30 (bench.py:394-410), and, when
+    it fails, whether the models stranded by ROADMAP C7 account for all of
+    the failure: the rule must then hold with only those models' fits
+    taken from the truth."""
+    (bfgs_out, bfgs_ems), (truth_out, truth_ems) = bfgs, truth
+    close_bfgs, close_scratch = _moments_gap(bfgs_out, truth_out), _moments_gap(scratch_out, truth_out)
+    log(f"[bfgs] distance to the {TRUTH_NITS}-step Adam truth: bfgs-{BFGS_NITS} {close_bfgs:.4e} degC, "
+        f"scratch-{TIMING_NITS} {close_scratch:.4e} degC (rule: bfgs <= {BFGS_SLACK} x scratch): "
+        f"{'holds' if close_bfgs <= BFGS_SLACK * close_scratch else 'FAILS'}")
+    if close_bfgs <= BFGS_SLACK * close_scratch:
+        return True
+    marg, n_stranded = [], 0
+    for name, (block, _), be, te in zip(("hist", "ssp"), _collections(torch, inputs, dev, torch.float32),
+                                        bfgs_ems, truth_ems):
+        nl_b, nl_t = _nlml(bt, block, be), _nlml(bt, block, te)
+        raw_v = be[2].raw_variance.detach()
+        stranded = (raw_v < C7_RAW_VARIANCE) & (nl_b - nl_t > C7_NLML_GAP)
+        for k in torch.nonzero(stranded).flatten().tolist():
+            log(f"[bfgs] {name} model {k} stranded (C7): raw (lengthscale, variance) "
+                f"({be[2].raw_lengthscale[k].item():.3f}, {raw_v[k].item():.3f}), NLML "
+                f"{nl_b[k].item():.3f} vs the truth's {nl_t[k].item():.3f}")
+        worse = int(((nl_b - nl_t > 1e-3) & ~stranded).sum())
+        log(f"[bfgs] {name}: {int(stranded.sum())} model(s) stranded; of the others, {worse} end "
+            f"above the truth's NLML by more than 1e-3 and "
+            f"{int((nl_b - nl_t < -1e-3).sum())} below it")
+        n_stranded += int(stranded.sum())
+        marg.append(tuple(torch.where(stranded[:, None], t_, b_) for b_, t_ in zip(be[:2], te[:2])))
+    swapped = _moments_gap(_tail(torch, bt, inputs, marg, dev, torch.float32), truth_out)
+    ok = n_stranded > 0 and swapped <= BFGS_SLACK * close_scratch
+    log(f"[bfgs] with the {n_stranded} stranded model(s) taken from the truth: {swapped:.4e} degC; "
+        + ("the rule fails only through the models ROADMAP C7 strands (the JAX package's BFGS "
+           "takes the same first step)" if ok else "the rule still FAILS"))
+    return ok
+
+
+def check_tail_and_refinement(torch, bt, inputs, dev, step_out, nits):
+    """Phase 4, added: the float32 marginals through ``emulate_marginals``
+    (with the fitted hyperparameters and targets), which must give the
+    step's output bit for bit; every weight kind's tail on the card against
+    float64 on the CPU at those marginals; the float64 refinement on the
+    card against the CPU.  Returns the emulations for phase 8."""
+    again, ems = _staged(torch, bt, inputs, dev, nits)
+    marg = [(mu, var) for mu, var, *_ in ems]
+    same = all(torch.equal(a, b) for a, b in zip(again, step_out))
+    log(f"[tail] emulate_marginals + multi_scenario_tail equal the step bit for bit: {same}")
+    ok = same
+    cpu = torch.device("cpu")
+    for kind in bt.WEIGHT_KINDS:
+        dt, got = _wall(torch, lambda: _tail(torch, bt, inputs, marg, dev, torch.float32,
+                                             weight_kind=kind))
+        t0 = time.perf_counter()
+        want = _tail(torch, bt, inputs, marg, cpu, torch.float64, weight_kind=kind)
+        cpu_s = time.perf_counter() - t0
+        dw, dm = _abs(got[2], want[2]), _moments_gap(got, want)
+        finite = all(bool(torch.isfinite(a).all()) for a in got)
+        log(f"[tail] {kind}: f32 card {dt * 1e3:.1f} ms vs f64 CPU {cpu_s:.2f} s: max |dweight| "
+            f"{dw:.3e} (gate {WEIGHT_TOL}), max |dmoment| {dm:.3e} degC (gate {PARITY_DEGC}), "
+            f"finite={finite}")
+        ok &= finite and dw < WEIGHT_TOL and dm < PARITY_DEGC
+    hb, hm, sb, sm, obs, mm = inputs
+    (_, _, hp, hym, hyv), (_, _, sp, sym, syv) = ems
+    targets = ((hym, hyv), (sym, syv))
+    refined = {}
+    for key, where in (("card", dev), ("CPU", cpu)):
+        dt, refined[key] = _wall(torch, lambda: bt.refined_multi_scenario_f64(
+            hb, hm, sb, sm, obs, mm, hp, sp, targets=targets, device=where))
+        log(f"[refined] float64 posterior and tail on the {key}: {dt:.3f} s")
+    gap = max(float(np.abs(a - b).max()) for a, b in zip(refined["card"][:2], refined["CPU"][:2]))
+    f32_gap = _moments_gap(step_out, [torch.from_numpy(a) for a in refined["card"]])
+    log(f"[refined] card vs CPU: max |dmoment| {gap:.3e} degC (gate {REFINED_DEGC}); the float32 "
+        f"step differs from the refined moments by {f32_gap:.3e} degC")
+    ok &= gap < REFINED_DEGC
+    return ok, ems
+
+
+def run_subgradient(torch, bt, inputs, dev, report):
+    """Phase 7: the step with the reference-faithful subgradient DBA."""
+    from bayesian_ensembling_tpu_torch.ops import dtw as dtw_ops
+
+    kw = dict(dba_method="subgradient", dba_iterations=SUBGRADIENT_EPOCHS)
+    epochs, targets = {}, {}
+    for dtype in (torch.float32, torch.float64):
+        for name, (block, mask) in zip(("hist", "ssp"), _collections(torch, inputs, dev, dtype)):
+            dt, (y, info) = _wall(torch, lambda: dtw_ops.dba_subgradient_batch(
+                block, mask, max_iter=SUBGRADIENT_EPOCHS, tol=1e-3, return_info=True))
+            epochs[name, dtype], targets[name, dtype] = info["epochs"], y
+            log(f"[subgradient] {name} {str(dtype)[6:]}: {info['epochs']} epochs, "
+                f"{int(info['converged'].sum())} of {S * M} models converged, {dt:.3f} s")
+    for name in ("hist", "ssp"):
+        log(f"[subgradient] {name} target f32 vs f64: max |dy| "
+            f"{_abs(targets[name, torch.float32], targets[name, torch.float64]):.3e} degC")
+
+    bt.reset_launch_counts()
+    dt, out = _wall(torch, lambda: run_slice(torch, bt, inputs, dev, torch.float32, PARITY_NITS, **kw))
+    launches = bt.launch_counts()
+    n_epochs = epochs["hist", torch.float32] + epochs["ssp", torch.float32]
+    expected = {"dba_update": R * n_epochs, "dba_update_split": 0, "chol_solve": 2 * (PARITY_NITS + 1),
+                "tri_inv": 2 * (PARITY_NITS + 1), "chol": 0, "dtw_cost": n_epochs}
+    log(f"[subgradient] step f32 on the card, {PARITY_NITS} Adam steps: {dt:.2f} s; launches "
+        f"{launches} (expected {expected})")
+    report["subgradient_launches"] = launches
+    dt, ref = _wall(torch, lambda: run_slice(torch, bt, inputs, dev, torch.float64, PARITY_NITS, **kw))
+    dmean, dstd, dw = _abs(out[0], ref[0]), _abs(out[1], ref[1]), _abs(out[2], ref[2])
+    log(f"[subgradient] step f64 on the card: {dt:.2f} s; max |dmean| {dmean:.3e} degC, max |dstd| "
+        f"{dstd:.3e} degC (gate {PARITY_DEGC}), max |dweight| {dw:.3e}; epochs f32 "
+        f"{epochs['hist', torch.float32]}/{epochs['ssp', torch.float32]}, f64 "
+        f"{epochs['hist', torch.float64]}/{epochs['ssp', torch.float64]} (hist/ssp)")
+    finite = all(bool(torch.isfinite(a).all()) for a in out)
+    ok = launches == expected and finite and dmean < PARITY_DEGC and dstd < PARITY_DEGC
+    if not ok:
+        print("chip_smoke: the subgradient step failed its check", file=sys.stderr)
+
+    medoid = {}
+    for dtype in (torch.float32, torch.float64):
+        block, mask = _collections(torch, inputs, dev, dtype)[0]
+        bt.reset_launch_counts()
+        dt, medoid[dtype] = _wall(torch, lambda: bt.dba_batch(block, mask, n_iterations=10,
+                                                              init="medoid"))
+        counts = bt.launch_counts()
+        log(f"[medoid] dba_batch(init='medoid') hist {str(dtype)[6:]}: {dt:.3f} s; dtw_cost "
+            f"{counts['dtw_cost']}, dba_update {counts['dba_update']}")
+        ok &= counts["dtw_cost"] == 1 and counts["dba_update"] == 10
+        if dtype == torch.float32:
+            report["medoid_launches"] = counts
+    dm = _abs(medoid[torch.float32], medoid[torch.float64])
+    log(f"[medoid] f32 vs f64: max |dy| {dm:.3e} degC (gate {PARITY_DEGC})")
+    ok &= dm < PARITY_DEGC
+    if not ok:
+        print("chip_smoke: the subgradient or medoid check failed", file=sys.stderr)
+        return False
+
+    walls = []
+    for rep in range(TIMING_REPS + 1):
+        dt, out = _wall(torch, lambda: run_slice(torch, bt, inputs, dev, torch.float32, TIMING_NITS,
+                                                 **kw))
+        log(f"[subgradient] {'warm-up' if rep == 0 else f'run {rep}'}: {dt:.3f} s")
+        if rep:
+            walls.append(dt)
+    dba_s = 0.0
+    for block, mask in _collections(torch, inputs, dev, torch.float32):
+        dt, _ = _wall(torch, lambda: bt.prepare_gp_inputs(block, mask, **kw))
+        dba_s += dt
+    log(f"[subgradient] {TIMING_NITS} Adam steps, subgradient DBA: median "
+        f"{statistics.median(walls):.3f} s over {len(walls)} runs, of which the DBA stage "
+        f"(both collections, run alone) {dba_s:.3f} s")
+    return all(bool(torch.isfinite(a).all()) for a in out)
+
+
+def _timed_runs(torch, fn, label):
+    """A warm-up and TIMING_REPS runs of ``fn``; returns (median s, last output)."""
+    walls = []
+    for rep in range(TIMING_REPS + 1):
+        dt, out = _wall(torch, fn)
+        log(f"[{label}] {'warm-up' if rep == 0 else f'run {rep}'}: {dt:.3f} s")
+        if rep:
+            walls.append(dt)
+    return statistics.median(walls), out
+
+
+def run_fast_routes(torch, bt, inputs, dev, step_out, ems, scratch_out):
+    """Phase 8: the coarse-to-fine-in-time route, the 30-step BFGS and the
+    chunked fit, at the flagship shape."""
+    from bayesian_ensembling_tpu_torch.ops import gp as gp_ops
+
+    ok = True
+    warm_s, warm = _timed_runs(torch, lambda: run_slice(torch, bt, inputs, dev, torch.float32,
+                                                        WARM_NITS, **WARM_KW), "warm")
+    dt, warm64 = _wall(torch, lambda: run_slice(torch, bt, inputs, dev, torch.float64, WARM_NITS,
+                                                  **WARM_KW))
+    gap = _moments_gap(warm, warm64)
+    log(f"[warm] stride {WARM_KW['time_stride']}, {WARM_NITS} coarse + {WARM_KW['fine_steps']} fine "
+        f"steps: median {warm_s:.3f} s; f64 on the card "
+        f"{dt:.2f} s; f32 vs f64 max |dmoment| {gap:.3e} degC (gate {PARITY_DEGC})")
+    ok &= gap < PARITY_DEGC
+
+    bfgs_s, bfgs = _timed_runs(torch, lambda: run_slice(torch, bt, inputs, dev, torch.float32,
+                                                        BFGS_NITS, **BFGS_KW), "bfgs")
+    dt, bfgs64 = _wall(torch, lambda: run_slice(torch, bt, inputs, dev, torch.float64, BFGS_NITS,
+                                                  **BFGS_KW))
+    log(f"[bfgs] {BFGS_NITS} steps: median {bfgs_s:.3f} s; f32 vs f64 on the card max |dmoment| "
+        f"{_moments_gap(bfgs, bfgs64):.3e} degC (reported only: an accept/reject flip forks the "
+        f"trajectory)")
+    staged_bfgs = _staged(torch, bt, inputs, dev, BFGS_NITS, **BFGS_KW)
+    same = all(torch.equal(a, b) for a, b in zip(staged_bfgs[0], bfgs))
+    dt_truth, truth = _wall(torch, lambda: _staged(torch, bt, inputs, dev, TRUTH_NITS))
+    log(f"[bfgs] the {TRUTH_NITS}-step Adam truth: {dt_truth:.1f} s; the staged bfgs run equals the "
+        f"timed one bit for bit: {same}")
+    ok &= same and _bfgs_gate(torch, bt, inputs, dev, staged_bfgs, truth, scratch_out)
+
+    marg, same_params = [], True
+    for (block, mask), (_, _, params, _, _) in zip(_collections(torch, inputs, dev, torch.float32), ems):
+        x, y, v = gp_ops.prepare_gp_inputs(block, mask, dba_iterations=10)
+        chunked, _ = gp_ops.fit_gp_batch_dispatch(x, y, v, n_optim_nits=PARITY_NITS,
+                                                  chunk_steps=CHUNK_STEPS)
+        same_params &= (torch.equal(chunked.raw_lengthscale, params.raw_lengthscale)
+                        and torch.equal(chunked.raw_variance, params.raw_variance))
+        mu, var = gp_ops.posterior_marginals_batch(chunked, x, y, v)
+        marg.append((mu, var + v))
+    out = _tail(torch, bt, inputs, marg, dev, torch.float32)
+    same = all(torch.equal(a, b) for a, b in zip(out, step_out))
+    log(f"[chunked] {PARITY_NITS} Adam steps in chunks of {CHUNK_STEPS}: hyperparameters equal the "
+        f"merged fit's bit for bit: {same_params}; moments and weights equal phase 4's: {same}")
+    ok &= same_params and same
+    return ok
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of the synthetic inputs")
@@ -638,6 +988,7 @@ def main(argv=None):
 
     import torch
 
+    t_start = time.perf_counter()
     # Phase 1: device.
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs an NVIDIA GPU",
@@ -673,10 +1024,12 @@ def main(argv=None):
         f"{inputs[5].sum(axis=1).astype(int).tolist()}")
 
     # Phase 3: kernels against their plain versions.
-    report = {"dba_update": [], "dba_update_split": [], "chol_solve": [], "tri_inv": [], "chol": []}
+    report = {"dba_update": [], "dba_update_split": [], "chol_solve": [], "tri_inv": [], "chol": [],
+              "dtw_cost": [], "dtw_cost_f64": []}
     log("[kernels]")
     monthly_pack = bt.pack_dedup_campaign(synthetic_monthly(args.seed)[0])
-    if not (check_kernels(torch, inputs, dev, report)
+    if not (check_cost_kernel(torch, inputs, monthly_pack, dev, report)
+            and check_kernels(torch, inputs, dev, report)
             and check_monthly_kernels(torch, monthly_pack, dev, report)):
         print("chip_smoke: a kernel disagrees with its plain version", file=sys.stderr)
         return 1
@@ -688,7 +1041,7 @@ def main(argv=None):
                                                      PARITY_NITS))
     launches, routes = bt.launch_counts(), bt.route_counts()
     expected = {"dba_update": 2 * 10, "dba_update_split": 0, "chol_solve": 2 * (PARITY_NITS + 1),
-                "tri_inv": 2 * (PARITY_NITS + 1), "chol": 0}
+                "tri_inv": 2 * (PARITY_NITS + 1), "chol": 0, "dtw_cost": 0}
     expected_routes = {"kernel": 4 * (PARITY_NITS + 1), "blocked": 0, "library": 0}
     log(f"[slice] f32 on the card, {PARITY_NITS} Adam steps: {dt:.2f} s; "
         f"launches {launches} (expected {expected}); routes {routes} (expected {expected_routes})")
@@ -712,6 +1065,11 @@ def main(argv=None):
     if not (dmean < PARITY_DEGC and dstd < PARITY_DEGC):
         print("chip_smoke: f32 kernel path disagrees with the f64 plain path", file=sys.stderr)
         return 1
+    step_out = (bm, bs, w)
+    tail_ok, ems = check_tail_and_refinement(torch, bt, inputs, dev, step_out, PARITY_NITS)
+    if not tail_ok:
+        print("chip_smoke: a weight kind's tail or the float64 refinement disagrees", file=sys.stderr)
+        return 1
 
     # Phase 5: the faithful workload.
     walls = []
@@ -724,6 +1082,7 @@ def main(argv=None):
     if not all(bool(torch.isfinite(a).all()) for a in out):
         print("chip_smoke: the timed run gave non-finite output", file=sys.stderr)
         return 1
+    scratch_out = out
     split = stage_split(torch, bt, inputs, dev, TIMING_NITS)
     per_step = split["fit"] / (2 * TIMING_NITS) * 1e3
     # One chol_solve and one tri_inv per Adam step, averaged over the two
@@ -740,9 +1099,19 @@ def main(argv=None):
     if not run_monthly(torch, bt, dev, args.seed, report):
         return 1
 
+    # Phase 7: the reference-faithful (subgradient) DBA, and the medoid init.
+    if not run_subgradient(torch, bt, inputs, dev, report):
+        return 1
+
+    # Phase 8: the bench's fast fit routes.
+    if not run_fast_routes(torch, bt, inputs, dev, step_out, ems, scratch_out):
+        print("chip_smoke: a fast fit route failed its check", file=sys.stderr)
+        return 1
+
     # Each kernel's row: its time and bound at the first shape it was checked
-    # at (the annual T = 165 for B1-B3, the leaves for B4, T = 1980 for B6),
-    # and its launches in the run of the path it serves (annual or monthly).
+    # at (the annual T = 165 for B1-B3, the leaves for B4, T = 1980 for B6,
+    # the subgradient epoch cost at T = 165 for B7), and its launches in the
+    # run of the path it serves (annual, monthly or subgradient).
     src = {
         "dba_update": ("bayesian_ensembling_tpu_torch/csrc/dba_update.cu",
                        "bayesian_ensembling_tpu/ops/dtw_pallas.py:337", launches),
@@ -755,6 +1124,9 @@ def main(argv=None):
         "dba_update_split": ("bayesian_ensembling_tpu_torch/csrc/dba_update_split.cu",
                              "bayesian_ensembling_tpu/ops/dtw_pallas.py:405",
                              report["monthly_launches"]),
+        "dtw_cost": ("bayesian_ensembling_tpu_torch/csrc/dtw_cost.cu",
+                     "bayesian_ensembling_tpu/ops/dtw_pallas.py:34",
+                     report["subgradient_launches"]),
     }
     kernels = []
     for name, (source, replaces, path_launches) in src.items():
@@ -764,11 +1136,14 @@ def main(argv=None):
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": path_launches[name],
             "launches_by_path": {"annual": launches[name],
-                                 "monthly": report["monthly_launches"][name]},
+                                 "monthly": report["monthly_launches"][name],
+                                 "subgradient": report["subgradient_launches"][name],
+                                 "medoid": report["medoid_launches"][name]},
             "max_abs_err": max(r["err"] for r in report[name]),
             "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": main_shape["library_ms"],
         })
+    log(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -182,5 +182,24 @@ def test_unported_campaign_options_raise():
     pack = tcampaign.pack_dedup_campaign(scen)
     with pytest.raises(NotImplementedError, match="ROADMAP.md item A10"):
         tcampaign.make_sharded_dedup_campaign(None)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item A6"):
-        tcampaign.run_dedup_campaign(pack, obs, weight_kind="loglik", device="cpu", **FIT_KW)
+    with pytest.raises(ValueError, match="unknown weight_kind"):
+        tcampaign.run_dedup_campaign(pack, obs, weight_kind="nope", device="cpu", **FIT_KW)
+
+
+@pytest.mark.parametrize("weight_kind", ["loglik", "inverse_square", "similarity_single"])
+def test_run_dedup_campaign_weight_kinds_match_jax(weight_kind):
+    """The campaign's tail with the other weighters, on the default routes
+    (nothing here leaves the kernels' size cap)."""
+    scen, obs = scenarios(5)
+    pack64 = jcampaign.pack_dedup_campaign(scen)
+    for name in FIELDS:
+        a = getattr(pack64, name)
+        if a.dtype == np.float32:
+            setattr(pack64, name, a.astype(np.float64))
+    want = jcampaign.run_dedup_campaign(pack64, jnp.asarray(obs), hist_chunk=3,
+                                        weight_kind=weight_kind, **FIT_KW)
+    got = tcampaign.run_dedup_campaign(tcampaign.pack_dedup_campaign(scen), obs, hist_chunk=3,
+                                       weight_kind=weight_kind, device="cpu",
+                                       dtype=torch.float64, **FIT_KW)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0, atol=TOL)

@@ -91,12 +91,8 @@ def test_dba_batch_matches_jax(iterations):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-12)
 
 
-def test_dba_batch_unported_options_raise():
+def test_dba_batch_refuses_unknown_init():
     block = torch.zeros((1, 2, 5), dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item A6"):
-        tdtw.dba_batch(block, init="medoid")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item A6"):
-        tdtw.dba_batch(block, tol=1e-3)
     with pytest.raises(ValueError, match="unknown init"):
         tdtw.dba_batch(block, init="nope")
 

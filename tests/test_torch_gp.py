@@ -124,19 +124,17 @@ def test_posterior_marginals_at_jax_fitted_params(kernel_name):
 
 
 def test_fit_unported_options_raise():
+    """The optax L-BFGS route stays unported (ROADMAP A6b); the dispatch's
+    own argument errors are those of the JAX package."""
     x, y, v = (torch.from_numpy(a) for a in _inputs(1))
-    with pytest.raises(NotImplementedError, match="A6"):
-        tgp.fit_gp_batch(x, y, v, n_optim_nits=1, optimizer="bfgs")
-    with pytest.raises(NotImplementedError, match="A6"):
-        tgp.fit_gp_batch_dispatch(x, y, v, n_optim_nits=1, time_stride=2, fine_steps=1)
-    with pytest.raises(NotImplementedError, match="A6"):
-        tgp.fit_gp_batch_dispatch(x, y, v, n_optim_nits=1, chunk_steps=1)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md item A6b"):
+        tgp.fit_gp_batch(x, y, v, n_optim_nits=1, optimizer="lbfgs")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md item A6b"):
+        tgp.fit_gp_batch_dispatch(x, y, v, n_optim_nits=1, time_stride=2, fine_steps=1,
+                                  optimizer="lbfgs")
+    with pytest.raises(ValueError, match="unknown optimizer"):
+        tgp.fit_gp_batch(x, y, v, n_optim_nits=1, optimizer="sgd")
     with pytest.raises(ValueError, match="time_stride"):
         tgp.fit_gp_batch_dispatch(x, y, v, n_optim_nits=1, time_stride=0)
     with pytest.raises(ValueError, match="fine_steps"):
         tgp.fit_gp_batch_dispatch(x, y, v, n_optim_nits=1, fine_steps=2)
-    block, mask = (torch.from_numpy(a) for a in make_block(0))
-    with pytest.raises(NotImplementedError, match="A6"):
-        tgp.prepare_gp_inputs(block, mask, dba_method="subgradient")
-    with pytest.raises(NotImplementedError, match="A6"):
-        tgp.prepare_gp_inputs(block, mask, dba_tol=1e-3)

@@ -5,8 +5,9 @@ no JAX, so it also runs where only PyTorch is installed:
 
     python -m pytest tests/test_torch_kernels.py -m gpu --noconftest
 
-Tolerances: the DBA updates are an exact DP (identical arithmetic per
-cell), so both kernels and the plain version agree bit for bit.  The linear
+Tolerances: the DBA updates and the squared-DTW cost are an exact DP
+(identical arithmetic per cell), so the kernels and the plain versions agree
+bit for bit.  The linear
 algebra runs on Matern-3/2 Grams plus noise (condition number below 1e3);
 float64 agrees to 1e-10 and float32 to 1e-3 of the largest entry.
 """
@@ -185,6 +186,53 @@ def test_kernels_refuse_what_they_lack(cuda_device):
     with pytest.raises(ValueError, match="impl='split'"):
         dtw_cuda.dba_update_batch(torch.zeros((2, 500), device=cuda_device),
                                   torch.zeros((2, 500), device=cuda_device), impl="fused")
+    big_t = dtw_cuda.DTW_COST_T_CAP[torch.float64] + 1
+    with pytest.raises(ValueError, match="shared-memory cap"):
+        dtw_cuda.squared_dtw_cost_batch(torch.zeros((1, big_t), dtype=torch.float64, device=cuda_device),
+                                        torch.zeros((1, big_t), dtype=torch.float64, device=cuda_device))
+
+
+@pytest.mark.parametrize("t", [1, 2, 165, 1980])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_dtw_cost_kernel_matches_plain(cuda_device, t, dtype):
+    """N = 37 pairs fill no whole wave of blocks; T = 1980 strides rows over
+    the block's 512 threads."""
+    gen = torch.Generator().manual_seed(t)
+    c = torch.randn((37, t), generator=gen, dtype=dtype).to(cuda_device)
+    s = torch.randn((37, t), generator=gen, dtype=dtype).to(cuda_device)
+    reset_launch_counts()
+    got = dtw_cuda.squared_dtw_cost_batch(c, s)
+    assert launch_counts()["dtw_cost"] == 1
+    want = dtw_cuda.squared_dtw_cost_batch_reference(c, s)
+    torch.cuda.synchronize()
+    assert got.shape == (37,) and got.dtype == dtype
+    assert torch.equal(got, want)
+
+
+def test_dtw_cost_kernel_serves_the_medoid_and_subgradient_paths(cuda_device):
+    """The medoid init makes one cost launch for all B*R(R-1)/2 pairs; the
+    subgradient DBA makes one per epoch and R DBA-update launches per
+    epoch; both equal their CPU runs (the epoch orders are drawn on the
+    CPU, so the two take the same orders)."""
+    from bayesian_ensembling_tpu_torch.ops import dtw as tdtw
+
+    gen = torch.Generator().manual_seed(3)
+    block = torch.randn((4, 6, 40), generator=gen, dtype=torch.float64)
+    mask = torch.ones((4, 6), dtype=torch.bool)
+    mask[1, 4:] = False
+    reset_launch_counts()
+    got = tdtw.dba_batch(block.to(cuda_device), mask.to(cuda_device), n_iterations=2, init="medoid")
+    assert launch_counts()["dtw_cost"] == 1 and launch_counts()["dba_update"] == 2
+    want = tdtw.dba_batch(block, mask, n_iterations=2, init="medoid")
+    # Exact DP on both sides; the masked sums over R may differ in order.
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-12)
+    reset_launch_counts()
+    got, info = tdtw.dba_subgradient_batch(block.to(cuda_device), mask.to(cuda_device),
+                                           max_iter=5, return_info=True)
+    assert launch_counts()["dtw_cost"] == info["epochs"]
+    assert launch_counts()["dba_update"] == 6 * info["epochs"]
+    want = tdtw.dba_subgradient_batch(block, mask, max_iter=5)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-12)
 
 
 def test_library_builds_for_sm90a(cuda_device):
