@@ -6,15 +6,31 @@ from it (and no JAX).  Its hand-written CUDA kernels (``csrc/``) replace the
 JAX package's Pallas TPU kernels on the main path; each has a plain PyTorch
 version beside it, which runs when the tensors are on the CPU.
 
-Main entry points: :func:`ensemble_multi_scenario_step` (the annual
-7-SSP step; every DBA method, optimiser, fit route and weight kind of the
-JAX step), :func:`run_dedup_campaign` (the native-monthly campaign, each
-unique model fitted once) and :func:`refined_multi_scenario_f64` (the
+Main entry points: the library API, ``ModelCollection([...]).fit(GPDTW1D())``
+-> a weighter -> ``Barycentre()``, and its one-call form
+:func:`pipeline.run_scenario`; :func:`ensemble_multi_scenario_step` (the
+annual 7-SSP step; every DBA method, optimiser, fit route and weight kind
+of the JAX step), :func:`run_dedup_campaign` (the native-monthly campaign,
+each unique model fitted once) and :func:`refined_multi_scenario_f64` (the
 float64 posterior and tail at given hyperparameters).
 """
 
-from bayesian_ensembling_tpu_torch import _build
-from bayesian_ensembling_tpu_torch.convert import gp_params_from_jax, gp_params_to_numpy
+from bayesian_ensembling_tpu_torch import _build, metrics, ops, pipeline
+from bayesian_ensembling_tpu_torch.convert import (
+    collection_from_jax,
+    gp_params_from_jax,
+    gp_params_to_numpy,
+    posterior_from_jax,
+)
+from bayesian_ensembling_tpu_torch.coords import DimArray
+from bayesian_ensembling_tpu_torch.data import ModelCollection, Posterior, ProcessModel
+from bayesian_ensembling_tpu_torch.models.gp_dtw import (
+    GPDTW1D,
+    emulate_batch,
+    emulate_batch_chunked,
+    refine_posterior_f64,
+)
+from bayesian_ensembling_tpu_torch.models.mean_field import MeanField, MeanFieldApproximation
 from bayesian_ensembling_tpu_torch.ops.dtw import (
     dba,
     dba_batch,
@@ -39,6 +55,7 @@ from bayesian_ensembling_tpu_torch.ops.linalg_cuda import (
     cholesky_solve_fused,
     linalg_path,
     nlml_terms,
+    solve_vec_batched,
     tri_inv_batched,
 )
 from bayesian_ensembling_tpu_torch.parallel.campaign import (
@@ -59,8 +76,47 @@ from bayesian_ensembling_tpu_torch.parallel.step import (
     pad_models,
     refined_multi_scenario_f64,
 )
+from bayesian_ensembling_tpu_torch.pipeline import ScenarioResult, run_scenario
+from bayesian_ensembling_tpu_torch.schemes import Barycentre, MultiModelMean, WeightedModelMean
+from bayesian_ensembling_tpu_torch.weights import (
+    AbstractWeight,
+    CRPSWeight,
+    InverseSquareWeight,
+    KSDWeight,
+    LogLikelihoodWeight,
+    ModelSimilarityWeight,
+    UniformWeight,
+)
 
 __all__ = [
+    "ops",
+    "metrics",
+    "pipeline",
+    "AbstractWeight",
+    "Barycentre",
+    "CRPSWeight",
+    "DimArray",
+    "GPDTW1D",
+    "InverseSquareWeight",
+    "KSDWeight",
+    "LogLikelihoodWeight",
+    "MeanField",
+    "MeanFieldApproximation",
+    "ModelCollection",
+    "ModelSimilarityWeight",
+    "MultiModelMean",
+    "Posterior",
+    "ProcessModel",
+    "ScenarioResult",
+    "UniformWeight",
+    "WeightedModelMean",
+    "collection_from_jax",
+    "emulate_batch",
+    "emulate_batch_chunked",
+    "posterior_from_jax",
+    "refine_posterior_f64",
+    "run_scenario",
+    "solve_vec_batched",
     "BatchedGPParams",
     "DedupCampaign",
     "WEIGHT_KINDS",

@@ -1,16 +1,20 @@
 """Batched exact Gaussian-process regression with known heteroskedastic noise.
 
-PyTorch counterpart of ``bayesian_ensembling_tpu/ops/gp.py``, batched
-surface: the softplus hyperparameters, the Matern-3/2 and RBF kernels with
-the distance statistic hoisted out of the optimisation loop, the DBA
-preamble (classic or subgradient DBA), the batched fit on the exact NLML
-(Adam or the per-model damped BFGS; merged, host-chunked or coarse-to-fine
-in time) and the posterior marginals.
+PyTorch counterpart of ``bayesian_ensembling_tpu/ops/gp.py``: the softplus
+hyperparameters, the Matern-3/2 and RBF kernels with the distance statistic
+hoisted out of the optimisation loop, the DBA preamble (classic or
+subgradient DBA), the batched fit on the exact NLML (Adam or the per-model
+damped BFGS; merged, host-chunked or coarse-to-fine in time), the posterior
+marginals and the full-covariance posterior, and the single-model API
+(:func:`nlml`, :func:`posterior`, :func:`posterior_marginals`,
+:func:`fit_gp`) as batches of one.
 
     nlml = 0.5 y^T (K + D)^-1 y + 0.5 logdet(K + D) + T/2 log 2pi
 
 Every batched function takes ``(M, ...)`` tensors, one row per model, and
-runs on the device its inputs are on.
+runs on the device its inputs are on.  The single-model functions take
+unbatched ``x (T, D)``, ``y (T,)``, ``noise_var (T,)`` and a
+:class:`BatchedGPParams` of one model.
 """
 
 from __future__ import annotations
@@ -33,7 +37,15 @@ __all__ = [
     "BatchedGPParams",
     "softplus",
     "init_params",
+    "matern32",
+    "rbf",
+    "get_kernel",
     "get_kernel_precomputed",
+    "nlml",
+    "posterior",
+    "posterior_marginals",
+    "fit_gp",
+    "posterior_batch",
     "prepare_gp_inputs",
     "fit_gp_batch",
     "fit_gp_batch_segment",
@@ -127,6 +139,33 @@ def get_kernel_precomputed(name: str):
         return _KERNELS_PRE[name]
     except KeyError:
         raise ValueError(f"unknown kernel {name!r}; options: {sorted(_KERNELS_PRE)}") from None
+
+
+def _batched_kernel(name: str):
+    precompute, apply_fn = _KERNELS_PRE[name]
+
+    def kernel(params: BatchedGPParams, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
+        if x1.dim() == 2:  # one model: (N, D) and (P, D)
+            return apply_fn(params, precompute(x1[None], x2[None]))[0]
+        return apply_fn(params, precompute(x1, x2))
+
+    kernel.__name__ = name
+    return kernel
+
+
+#: Matern-3/2 kernel, the reference's emulator kernel: ``(M, N, D)`` and
+#: ``(M, P, D)`` inputs give ``(M, N, P)``; unbatched inputs one matrix.
+matern32 = _batched_kernel("matern32")
+#: Squared-exponential kernel, same shapes.
+rbf = _batched_kernel("rbf")
+_KERNELS = {"matern32": matern32, "rbf": rbf}
+
+
+def get_kernel(name: str):
+    try:
+        return _KERNELS[name]
+    except KeyError:
+        raise ValueError(f"unknown kernel {name!r}; options: {sorted(_KERNELS)}") from None
 
 
 def prepare_gp_inputs(
@@ -571,3 +610,94 @@ def posterior_marginals_batch(
     wk = torch.matmul(linalg_cuda.tri_inv_routed(l), k)
     var = torch.diagonal(k, dim1=-2, dim2=-1) - torch.einsum("bji,bji->bi", wk, wk)
     return mean, torch.clamp(var, min=1e-12)
+
+
+@torch.no_grad()
+def posterior_batch(
+    params: BatchedGPParams,
+    x: torch.Tensor,  # (M, T, D)
+    y: torch.Tensor,  # (M, T)
+    noise_var: torch.Tensor,  # (M, T)
+    kernel_name: str = "matern32",
+    jitter: float = 1e-6,
+) -> tp.Tuple[torch.Tensor, torch.Tensor]:
+    """Exact posterior mean ``(M, T)`` and full covariance ``(M, T, T)`` of
+    the latent f at the training inputs: ``mean = K alpha`` and
+    ``cov = K - V^T V`` with ``V = L^-1 K``.
+
+    The factor and alpha come from the Cholesky-solve kernel within its size
+    cap (torch.linalg beyond); ``V`` is a triangular solve with a matrix
+    right-hand side, left to ``torch.linalg`` as the JAX package leaves it
+    to XLA.  Both products run in full float32 on the card."""
+    precompute, apply_fn = get_kernel_precomputed(kernel_name)
+    k = apply_fn(params, precompute(x, x))
+    t = k.shape[-1]
+    ky = k + torch.diag_embed(noise_var) + jitter * torch.eye(t, dtype=k.dtype, device=k.device)
+    l, _, alpha, _ = linalg_cuda.chol_solve_routed(ky, y)
+    mean = torch.einsum("bij,bj->bi", k, alpha)
+    v = torch.linalg.solve_triangular(l, k, upper=False)
+    return mean, k - torch.matmul(v.mT, v)
+
+
+def _one_model(params: BatchedGPParams) -> None:
+    if params.raw_lengthscale.shape[0] != 1:
+        raise ValueError(
+            "the single-model API takes a BatchedGPParams of one model, got "
+            f"{params.raw_lengthscale.shape[0]}; use the *_batch functions"
+        )
+
+
+def nlml(
+    params: BatchedGPParams,
+    x: torch.Tensor,
+    y: torch.Tensor,
+    noise_var: torch.Tensor,
+    kernel_name: str = "matern32",
+    jitter: float = 1e-6,
+) -> torch.Tensor:
+    """Negative log marginal likelihood of one heteroskedastic-noise GP
+    (a scalar, differentiable in ``params``)."""
+    _one_model(params)
+    t = x.shape[0]
+    k = get_kernel(kernel_name)(params, x[None], x[None])
+    ky = k + torch.diag_embed(noise_var[None]) + jitter * torch.eye(t, dtype=k.dtype,
+                                                                    device=k.device)
+    quad, logdet = linalg_cuda.nlml_terms(ky, y[None])
+    return 0.5 * (quad[0] + logdet[0] + t * _LOG_2PI)
+
+
+def posterior(params, x, y, noise_var, kernel_name: str = "matern32", jitter: float = 1e-6):
+    """Exact posterior (mean ``(T,)``, full covariance ``(T, T)``) of the
+    latent f of one model at its training inputs."""
+    _one_model(params)
+    mean, cov = posterior_batch(params, x[None], y[None], noise_var[None],
+                                kernel_name=kernel_name, jitter=jitter)
+    return mean[0], cov[0]
+
+
+def posterior_marginals(params, x, y, noise_var, kernel_name: str = "matern32",
+                        jitter: float = 1e-6):
+    """Marginal posterior (mean, variance), each ``(T,)``, of one model
+    without forming the full covariance."""
+    _one_model(params)
+    mean, var = posterior_marginals_batch(params, x[None], y[None], noise_var[None],
+                                          kernel_name=kernel_name, jitter=jitter)
+    return mean[0], var[0]
+
+
+def fit_gp(
+    x: torch.Tensor,
+    y: torch.Tensor,
+    noise_var: torch.Tensor,
+    kernel_name: str = "matern32",
+    n_optim_nits: int = 500,
+    learning_rate: float = 0.01,
+    jitter: float = 1e-6,
+) -> tp.Tuple[BatchedGPParams, torch.Tensor]:
+    """Optimise one model's kernel hyperparameters with Adam on the exact
+    NLML: :func:`fit_gp_batch` on a batch of one.  Returns the fitted
+    params (of one model) and the NLML trace ``(n_optim_nits,)``."""
+    params, losses = fit_gp_batch(x[None], y[None], noise_var[None], kernel_name=kernel_name,
+                                  n_optim_nits=n_optim_nits, learning_rate=learning_rate,
+                                  jitter=jitter)
+    return params, losses[0]

@@ -1,20 +1,24 @@
 """Batched small-matrix GP algebra: the fused Cholesky-solve kernel
 (``csrc/chol_solve.cu``), the Cholesky kernel (``csrc/chol.cu``), the
-triangular-inverse kernel (``csrc/tri_inv.cu``), their plain versions, the
+triangular-inverse kernel (``csrc/tri_inv.cu``), the vector-solve kernel
+(``csrc/solve_vec.cu``), their plain versions, the
 route dispatch :func:`linalg_path` with the routed calls that follow it,
 and the NLML terms with their custom gradient.
 
 Counterpart of ``bayesian_ensembling_tpu/ops/linalg_pallas.py``.  The public
-wrappers :func:`cholesky_batched`, :func:`cholesky_solve_fused` and
-:func:`tri_inv_batched` keep the JAX signatures and their batch-in-lanes
-``(T, T, B)`` L^T layout.  The hot path calls the batch-major cores
-:func:`chol_solve`, :func:`chol` and :func:`tri_inv` directly on
+wrappers :func:`cholesky_batched`, :func:`cholesky_solve_fused`,
+:func:`solve_vec_batched` and :func:`tri_inv_batched` keep the JAX
+signatures and their batch-in-lanes ``(T, T, B)`` L^T layout.  The hot path
+calls the batch-major cores :func:`chol_solve`, :func:`chol`,
+:func:`solve_vec` and :func:`tri_inv` directly on
 ``(B, T, T)`` tensors, so the optimisation loop does no per-step
 transposes.  CUDA tensors go to the kernels; CPU tensors go to the
 ``*_reference`` functions.
 
-The kernels hold a whole matrix in one block's shared memory, which caps T
-(:data:`KERNEL_T_CAP`).  Beyond it :func:`linalg_path` sends the NLML of a
+The factorising kernels hold a whole matrix in one block's shared memory,
+which caps T (:data:`KERNEL_T_CAP`); the vector solve reads its factor from
+device memory and holds only vectors (:data:`SOLVE_VEC_T_CAP`).  Beyond
+:data:`KERNEL_T_CAP` :func:`linalg_path` sends the NLML of a
 large float32 batch to the recursive blocked NLML (``ops/linalg_blocked.py``,
 on the Cholesky and triangular-inverse kernels) and everything else to
 ``torch.linalg`` ("library"), where the JAX package uses XLA's
@@ -43,11 +47,17 @@ __all__ = [
     "BLOCKED_MIN_BATCH",
     "BLOCKED_T_CAP",
     "KERNEL_T_CAP",
+    "SOLVE_VEC_T_CAP",
     "chol",
     "chol_reference",
+    "chol_routed",
     "chol_solve",
+    "chol_solve_composed",
     "chol_solve_reference",
     "chol_solve_routed",
+    "solve_vec",
+    "solve_vec_reference",
+    "solve_vec_batched",
     "tri_inv",
     "tri_inv_reference",
     "tri_inv_routed",
@@ -71,6 +81,20 @@ def _kernel_smem_bytes(t: int, itemsize: int) -> int:
 # shared memory: 239 in float32, 167 in float64.
 KERNEL_T_CAP = {
     dtype: _build.largest_t(lambda t, e=dtype.itemsize: _kernel_smem_bytes(t, e))
+    for dtype in (torch.float32, torch.float64)
+}
+
+
+def _solve_vec_smem_bytes(t: int, itemsize: int) -> int:
+    """Shared memory of the vector solve at T, as the launcher in
+    ``csrc/solve_vec.cu`` sizes it: z, the backward accumulator, one
+    32 x 33 triangle and two 32-vectors."""
+    return itemsize * (2 * t + 32 * 33 + 2 * 32)
+
+
+# Largest T of the vector solve: 28,496 in float32, 13,968 in float64.
+SOLVE_VEC_T_CAP = {
+    dtype: _build.largest_t(lambda t, e=dtype.itemsize: _solve_vec_smem_bytes(t, e))
     for dtype in (torch.float32, torch.float64)
 }
 # The JAX package's blocked-route gates, kept by name and value
@@ -150,6 +174,16 @@ def tri_inv_reference(l: torch.Tensor) -> torch.Tensor:
     return torch.linalg.solve_triangular(l, eye, upper=False)
 
 
+def solve_vec_reference(l: torch.Tensor, y: torch.Tensor):
+    """Plain PyTorch version of the vector-solve kernel: ``(z, alpha,
+    logdet)`` for lower factors ``l`` ``(B, T, T)`` and ``y`` ``(B, T)``,
+    by two ``solve_triangular`` calls and the log of the diagonal."""
+    z = torch.linalg.solve_triangular(l, y[..., None], upper=False)[..., 0]
+    alpha = torch.linalg.solve_triangular(l.mT, z[..., None], upper=True)[..., 0]
+    logdet = 2.0 * torch.sum(torch.log(torch.diagonal(l, dim1=-2, dim2=-1)), dim=-1)
+    return z, alpha, logdet
+
+
 def chol_solve(ky: torch.Tensor, y: torch.Tensor):
     """Cholesky factor, z = L^-1 y, alpha = K^-1 y and log|K| in one pass.
 
@@ -199,6 +233,41 @@ def chol(ky: torch.Tensor) -> torch.Tensor:
     return l
 
 
+def solve_vec(l: torch.Tensor, y: torch.Tensor):
+    """Both substitutions and the log-determinant for given factors.
+
+    Args:
+      l: ``(B, T, T)`` lower-triangular factors, batch-major as :func:`chol`
+        returns them (only the lower triangle is read).
+      y: ``(B, T)`` right-hand sides.
+
+    Returns:
+      ``(z (B, T) = L^-1 y, alpha (B, T) = L^-T z, logdet (B,) =
+      2 sum_i log L_ii)``.  CUDA tensors go to the vector-solve kernel
+      (T up to :data:`SOLVE_VEC_T_CAP`; the launch raises beyond), CPU
+      tensors to :func:`solve_vec_reference`.  Nothing is trapped: a zero
+      diagonal entry gives inf or NaN in ``z`` and ``alpha`` of that matrix
+      and ``-inf`` in its ``logdet``, a negative or NaN one gives NaN in
+      ``logdet``, as in the plain version; the other matrices of the batch
+      are unaffected.
+    """
+    b, t, t2 = l.shape
+    if t != t2 or y.shape != (b, t):
+        raise ValueError(f"expected (B, T, T) and (B, T), got {l.shape} and {y.shape}")
+    if l.device.type == "cpu":
+        return solve_vec_reference(l, y)
+    _build.check_cuda("solve_vec", l, y)
+    z = torch.empty_like(y)
+    alpha = torch.empty_like(y)
+    logdet = torch.empty((b,), dtype=l.dtype, device=l.device)
+    _build.launch(
+        "solve_vec",
+        f"bet_solve_vec_{_build.symbol_suffix(l.dtype)}",
+        l.data_ptr(), y.data_ptr(), z.data_ptr(), alpha.data_ptr(), logdet.data_ptr(), b, t,
+    )
+    return z, alpha, logdet
+
+
 def tri_inv(l: torch.Tensor) -> torch.Tensor:
     """W = L^-1 for lower-triangular ``l`` ``(B, T, T)``; W has zeros above
     the diagonal."""
@@ -228,6 +297,21 @@ def chol_solve_routed(ky: torch.Tensor, y: torch.Tensor):
     return _routed(chol_solve, chol_solve_reference, ky)(ky, y)
 
 
+def chol_routed(ky: torch.Tensor) -> torch.Tensor:
+    """:func:`chol` within the kernels' size cap, torch.linalg beyond."""
+    return _routed(chol, chol_reference, ky)(ky)
+
+
+def chol_solve_composed(ky: torch.Tensor, y: torch.Tensor):
+    """``(L, z, alpha, logdet)`` as :func:`chol_solve` returns them, composed
+    from :func:`chol_routed` and :func:`solve_vec`: the form the JAX
+    package's ``cholesky_solve_fused`` takes off the TPU, and what the
+    library API does with a posterior covariance (factor once, solve
+    against the factor)."""
+    l = chol_routed(ky)
+    return (l, *solve_vec(l, y))
+
+
 def tri_inv_routed(l: torch.Tensor) -> torch.Tensor:
     """:func:`tri_inv` within the kernels' size cap, torch.linalg beyond."""
     return _routed(tri_inv, tri_inv_reference, l)(l)
@@ -237,8 +321,7 @@ def cholesky_batched(ky_tlb: torch.Tensor) -> torch.Tensor:
     """Batched Cholesky, JAX layout: ``(T, T, B)`` SPD matrices in,
     ``(T, T, B)`` out with row k = column k of L (the L^T layout).  The
     kernel within its size cap, torch.linalg beyond."""
-    ky = ky_tlb.permute(2, 0, 1).contiguous()
-    return _routed(chol, chol_reference, ky)(ky).permute(2, 1, 0)
+    return chol_routed(ky_tlb.permute(2, 0, 1).contiguous()).permute(2, 1, 0)
 
 
 def cholesky_solve_fused(ky_tlb: torch.Tensor, y_tb: torch.Tensor):
@@ -256,6 +339,21 @@ def cholesky_solve_fused(ky_tlb: torch.Tensor, y_tb: torch.Tensor):
     ky = ky_tlb.permute(2, 0, 1).contiguous()
     l, z, alpha, logdet = chol_solve_routed(ky, y_tb.T.contiguous())
     return l.permute(2, 1, 0), z.T, alpha.T, logdet
+
+
+def solve_vec_batched(lt: torch.Tensor, y_tb: torch.Tensor):
+    """Solve L z = y and L^T alpha = z for every batch lane, and log|LL^T|,
+    JAX layout.
+
+    Args:
+      lt: ``(T, T, B)`` L^T-layout Cholesky factors (``lt[k] = L[:, k]``).
+      y_tb: ``(T, B)`` right-hand sides.
+
+    Returns:
+      ``(z (T, B), alpha (T, B), logdet (B,))``.
+    """
+    z, alpha, logdet = solve_vec(lt.permute(2, 1, 0).contiguous(), y_tb.T.contiguous())
+    return z.T, alpha.T, logdet
 
 
 def tri_inv_batched(lt: torch.Tensor) -> torch.Tensor:

@@ -1,8 +1,7 @@
 """Probabilistic scoring: Gaussian log-likelihood, closed-form CRPS and the
 IMQ kernel Stein discrepancy of 1-D marginals.
 
-PyTorch counterpart of ``bayesian_ensembling_tpu/ops/scoring.py`` (the
-full-covariance log-likelihood goes with the library API, ROADMAP A7).
+PyTorch counterpart of ``bayesian_ensembling_tpu/ops/scoring.py``.
 Where the JAX functions are vmapped over points or models, these take any
 leading batch shape.
 """
@@ -11,8 +10,11 @@ from __future__ import annotations
 
 import torch
 
+from bayesian_ensembling_tpu_torch.ops import linalg_cuda
+
 __all__ = [
     "diag_log_likelihood",
+    "fullcov_constant_vector_log_likelihood",
     "gaussian_crps",
     "mean_gaussian_crps",
     "imq_k0_matrix",
@@ -33,6 +35,49 @@ def diag_log_likelihood(mean: torch.Tensor, var: torch.Tensor, obs: torch.Tensor
     (the diag branch of the reference's LogLikelihoodWeight)."""
     z2 = torch.square(obs - mean) / var
     return -0.5 * (z2 + torch.log(var) + _LOG_2PI)
+
+
+def fullcov_constant_vector_log_likelihood(
+    mean: torch.Tensor, chol: torch.Tensor, obs: torch.Tensor
+) -> torch.Tensor:
+    """Reference-semantics MVN log-likelihood for full-covariance
+    posteriors, every model of a collection at once.
+
+    The reference feeds ``obs[:, None]`` (shape ``(T, 1)``) into an MVN over
+    T dims; broadcasting turns row ``t`` into the *constant vector*
+    ``obs_t * ones(T)``, so the per-time score is ``log N(obs_t * 1; mu,
+    Sigma)``.  With ``a = L^-1 1`` and ``b = L^-1 mu`` this is, for all t::
+
+      ll_t = -0.5 * (|obs_t a - b|^2 + logdet Sigma + T log 2pi).
+
+    ``a``, ``b`` and the log-determinant come from two calls of
+    :func:`~bayesian_ensembling_tpu_torch.ops.linalg_cuda.solve_vec` (the
+    vector-solve kernel on the card), batched over the models.
+
+    Args:
+      mean: ``(M, T)`` posterior means (or ``(T,)`` for one model).
+      chol: ``(M, T, T)`` lower Cholesky factors of the posterior
+        covariances (or ``(T, T)``).
+      obs: ``(n_obs_real, T)`` observations.
+
+    Returns:
+      ``(M, n_obs_real, T)`` log-densities (``(n_obs_real, T)`` for one
+      model).
+    """
+    single = mean.dim() == 1
+    if single:
+        mean, chol = mean[None], chol[None]
+    t = mean.shape[-1]
+    chol = chol.contiguous()
+    a, _, logdet = linalg_cuda.solve_vec(chol, torch.ones_like(mean))
+    b, _, _ = linalg_cuda.solve_vec(chol, mean.contiguous())
+    # |obs_t * a - b|^2 = obs_t^2 |a|^2 - 2 obs_t a.b + |b|^2
+    aa = torch.sum(a * a, dim=-1)[:, None, None]
+    ab = torch.sum(a * b, dim=-1)[:, None, None]
+    bb = torch.sum(b * b, dim=-1)[:, None, None]
+    quad = torch.square(obs) * aa - 2.0 * obs * ab + bb
+    ll = -0.5 * (quad + logdet[:, None, None] + t * _LOG_2PI)
+    return ll[0] if single else ll
 
 
 def gaussian_crps(obs: torch.Tensor, mu: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:

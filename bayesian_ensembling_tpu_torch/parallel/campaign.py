@@ -21,7 +21,7 @@ import typing as tp
 import numpy as np
 import torch
 
-from bayesian_ensembling_tpu_torch._errors import not_ported
+from bayesian_ensembling_tpu_torch._errors import not_ported, resolve_device
 from bayesian_ensembling_tpu_torch.parallel.step import (
     _check_step_options,
     chunked_marginals,
@@ -168,11 +168,7 @@ def run_dedup_campaign(
       ``(bary_mean (S, T_ssp), bary_std (S, T_ssp), weights (S, M))``.
     """
     _check_step_options(weight_kind, sigma_mode, None)
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "run_dedup_campaign: CUDA is not available; pass device='cpu' to run on the CPU"
-        )
+    device = resolve_device(device, "run_dedup_campaign")
 
     def tensor(a):
         a = np.asarray(a)

@@ -18,9 +18,10 @@ import typing as tp
 import numpy as np
 import torch
 
-from bayesian_ensembling_tpu_torch._errors import not_ported
+from bayesian_ensembling_tpu_torch._errors import not_ported, resolve_device
 from bayesian_ensembling_tpu_torch.ops import gp as gp_ops
 from bayesian_ensembling_tpu_torch.ops import scoring
+from bayesian_ensembling_tpu_torch.ops.wasserstein import batched_gaussian_barycentre
 
 __all__ = [
     "WEIGHT_KINDS",
@@ -209,15 +210,11 @@ def chunked_marginals(em, block: torch.Tensor, mask: torch.Tensor, chunk: int):
 
 
 def _barycentre(weights, ssp_mean, ssp_var, sigma_mode):
-    """W2 (or moment-matched mixture) barycentre over the model axis (-2)."""
-    w = weights[..., None]
-    bary_mean = torch.sum(w * ssp_mean, dim=-2)
-    if sigma_mode == "mixture":
-        dev = ssp_mean - bary_mean[..., None, :]
-        bary_std = torch.sqrt(torch.sum(w * (ssp_var + dev * dev), dim=-2))
-    else:
-        bary_std = torch.sum(w * torch.sqrt(ssp_var), dim=-2)
-    return bary_mean, bary_std
+    """W2 (or moment-matched mixture) barycentre over the model axis (-2),
+    one weight per model."""
+    return batched_gaussian_barycentre(
+        ssp_mean, torch.sqrt(ssp_var), weights[..., None], sigma_mode=sigma_mode
+    )
 
 
 def _check_step_options(weight_kind, sigma_mode, model_axis):
@@ -419,11 +416,7 @@ def refined_multi_scenario_f64(
     Returns ``(bary_mean, bary_std, weights)`` as float64 numpy arrays.
     """
     _check_step_options(weight_kind, sigma_mode, None)
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "refined_multi_scenario_f64: CUDA is not available; pass device='cpu' to run on the CPU"
-        )
+    device = resolve_device(device, "refined_multi_scenario_f64")
     f64 = torch.float64
     s, m, r, t_hist = hb.shape
     t_ssp = sb.shape[-1]

@@ -24,7 +24,14 @@ Phases, in order; any failure exits non-zero:
    leaves (B = 65, T = 128; the Cholesky with a non-positive-definite
    slot), the blocked NLML in float32 against
    torch.linalg in float64 (B = 65, T = 1032), and the route timings that
-   the linalg_path thresholds are decided from.
+   the linalg_path thresholds are decided from; then the vector solve
+   (given L: z, alpha, log-determinant) in float32 and float64 at the
+   library path's shapes (B = 16, T = 165 and 86, where the Cholesky
+   kernel is held against its plain version too) and at the shapes where
+   the fused kernel and the library route do the same work today
+   (B = 112, T = 165, where Cholesky + vector solve must also equal the
+   fused Cholesky-solve; B = 65, T = 1032; B = 28, T = 1980), with a zero
+   and a negative diagonal entry that must come through untrapped.
 4. The slice: ``ensemble_multi_scenario_step`` on synthetic GMST-like inputs
    of the flagship shape (7 SSPs x 16 padded models x 29 ragged
    realisations, T = 165 / 86, 200 observation members), float32 on the card
@@ -62,6 +69,19 @@ Phases, in order; any failure exits non-zero:
    BFGS strands on the plateau of ROADMAP C7 take the truth's fits, and
    the script names them); the chunked fit (chunks of 250) against phase 4's merged fit, bit
    for bit; median wall times of 3 runs.
+
+9. The library API at full width: the flagship inputs as ``ProcessModel`` /
+   ``ModelCollection`` objects (12 to 16 real models per scenario,
+   unpadded, yearly time coordinates), ``run_scenario`` with
+   ``LogLikelihoodWeight`` on the full-covariance ``GPDTW1D`` posteriors
+   for all 7 scenarios in float32 on the card (500 Adam steps), every
+   launch and route counter of every scenario checked (the Cholesky kernel
+   once and the vector solve twice per scenario); the same in float64 on
+   the card (0.01 degC on the barycentre); every other weighter, option,
+   scheme and sigma mode at one scenario's float32 posteriors, card
+   float32 against CPU float64; ``CRPSWeight`` through ``run_scenario``
+   against phase 4's fused step for scenario 0 (0.01 degC); the median
+   wall time of 3 runs and the share of fit, weights and scheme.
 
 The last lines are a JSON summary of the kernels, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -106,6 +126,7 @@ BFGS_SLACK = 1.05
 CHUNK_STEPS = 250
 WEIGHT_TOL = 1e-4  # float32 tail vs float64 at the same marginals
 REFINED_DEGC = 1e-5  # refined moments, card vs CPU (bench.py:539)
+LIBRARY_NITS, LIBRARY_REPS = 500, 3  # phase 9: run_scenario's fit depth; timed runs
 
 # Peak rates of one H100 SXM (NVIDIA's data sheet) for the kernels' bounds.
 HBM_BYTES_PER_S = 3.35e12
@@ -239,6 +260,12 @@ def _chol_solve_work(b, t, e=4):
     return b * (2 * t * t + 4 * t + 1) * e, b * (t ** 3 / 3 + 2 * t * t)
 
 
+def _solve_vec_work(b, t, e=4):
+    """The lower triangle of L and y read; z, alpha and log|LL^T| written;
+    T^2 flops for each of the two substitutions."""
+    return b * (t * (t + 1) // 2 + 3 * t + 1) * e, b * 2 * t * t
+
+
 def _matern_spd(torch, x, noise, dev):
     """Matern-3/2 Grams (lengthscale 1, variance 1) of the features plus noise."""
     from bayesian_ensembling_tpu_torch.ops import gp as gp_ops
@@ -331,6 +358,109 @@ def check_kernels(torch, inputs, dev, report):
         log(f"  chol_solve non-PD input at T={t} gives NaN only there: {nan_ok}")
         ok &= nan_ok
     return ok
+
+
+def check_solve_vec(torch, inputs, pack, dev, report):
+    """Phase 3, B5: the vector-solve kernel against its plain version in
+    float32 and float64, on the factors of Matern Grams of the paths'
+    features plus noise; at the library path's two shapes the Cholesky
+    kernel against its plain version on the same Grams, as that path
+    launches it; at (112, 165) the Cholesky kernel followed by the vector
+    solve against the fused Cholesky-solve kernel."""
+    from bayesian_ensembling_tpu_torch.ops import linalg_cuda as lc
+    from bayesian_ensembling_tpu_torch.parallel.campaign import pad_unique_axis
+
+    hb, _, sb, _, _, _ = inputs
+    uh, _ = pad_unique_axis(pack.uh, pack.um, HIST_CHUNK)
+    cases = [  # (what runs at this shape, realisation block (B, R, T))
+        ("library path, one scenario's hist", hb[0]),
+        ("library path, one scenario's ssp", sb[0]),
+        ("annual step's hist batch", hb.reshape(S * M, R, -1)),
+        ("monthly ssp batch", pack.usb),
+        ("monthly hist chunk", uh[:HIST_CHUNK]),
+    ]
+    rng = np.random.default_rng(3)
+    ok = True
+    for label, block in cases:
+        b, _, t = block.shape
+        x = torch.tensor(block, dtype=torch.float32, device=dev).transpose(1, 2).contiguous()
+        noise = torch.tensor(rng.uniform(0.005, 0.05, (b, t)), dtype=torch.float32, device=dev)
+        ky32 = _matern_spd(torch, x, noise, dev)
+        y32 = torch.tensor(rng.normal(size=(b, t)), dtype=torch.float32, device=dev)
+        del x
+        for dtype in (torch.float32, torch.float64):
+            ky, y = ky32.to(dtype), y32.to(dtype)
+            l = lc.chol_reference(ky).contiguous()  # torch.linalg returns a column-major factor
+            if b == M:  # the library path factors one scenario's posterior covariances
+                got_l = lc.chol(ky)
+                torch.cuda.synchronize()
+                rel, err = _rel(got_l, l), _abs(got_l, l)
+                ms = _cuda_ms(torch, lambda: lc.chol(ky), 50)
+                plain_ms = _cuda_ms(torch, lambda: lc.chol_reference(ky), 20)
+                lib_ms = _cuda_ms(torch, lambda: torch.linalg.cholesky_ex(ky), 20)
+                log(f"  chol {label} B={b} T={t} {str(dtype)[6:]}: rel err {rel:.2e} (tol "
+                    f"{LINALG_TOL}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, cholesky_ex "
+                    f"{lib_ms:.4f} ms")
+                ok &= rel < LINALG_TOL
+                report["chol"].append(dict(t=t, err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                           work=_triangle_work(b, t, ky.element_size())))
+                del got_l
+            got = lc.solve_vec(l, y)
+            want = lc.solve_vec_reference(l, y)
+            torch.cuda.synchronize()
+            rels = [_rel(g, w_) for g, w_ in zip(got, want)]
+            err = max(_abs(g, w_) for g, w_ in zip(got, want))
+            reps = 50 if t < 1000 else 10
+            ms = _cuda_ms(torch, lambda: lc.solve_vec(l, y), reps)
+            plain_ms = _cuda_ms(torch, lambda: lc.solve_vec_reference(l, y), reps)
+
+            def two_solves():
+                z = torch.linalg.solve_triangular(l, y[..., None], upper=False)
+                return torch.linalg.solve_triangular(l.mT, z, upper=True)
+
+            lib_ms = _cuda_ms(torch, two_solves, reps)
+            work = _solve_vec_work(b, t, l.element_size())
+            bound_ms, bound_by = _bound(*work)
+            log(f"  solve_vec {label} B={b} T={t} {str(dtype)[6:]}: rel err (z, alpha, logdet) = "
+                + ", ".join(f"{e:.2e}" for e in rels) + f" (tol {LINALG_TOL}); kernel {ms:.4f} ms, "
+                f"plain {plain_ms:.4f} ms, two solve_triangular {lib_ms:.4f} ms, bound "
+                f"{bound_ms:.5f} ms ({bound_by})")
+            ok &= max(rels) < LINALG_TOL
+            row = dict(t=t, b=b, err=err, ms=ms, plain_ms=plain_ms, work=work, library_ms=lib_ms)
+            report["solve_vec" if dtype == torch.float32 else "solve_vec_f64"].append(row)
+            if (b, t) == (S * M, T_HIST):
+                composed = lc.chol_solve_composed(ky, y)
+                fused = lc.chol_solve(ky, y)
+                torch.cuda.synchronize()
+                rels = [_rel(g, w_) for g, w_ in zip(composed, fused)]
+                ms_c = _cuda_ms(torch, lambda: lc.chol_solve_composed(ky, y), 50)
+                ms_f = _cuda_ms(torch, lambda: lc.chol_solve(ky, y), 50)
+                log(f"  chol + solve_vec vs chol_solve B={b} T={t} {str(dtype)[6:]}: rel err (L, z, "
+                    "alpha, logdet) = " + ", ".join(f"{e:.2e}" for e in rels)
+                    + f" (tol {LINALG_TOL}); composed {ms_c:.4f} ms, fused {ms_f:.4f} ms")
+                ok &= max(rels) < LINALG_TOL
+            del ky, y, l, got, want
+        del ky32
+        torch.cuda.empty_cache()
+
+    # A zero and a negative diagonal entry come through untrapped, in their
+    # own matrices only, as in the plain version.
+    x = torch.tensor(hb[0], dtype=torch.float32, device=dev).transpose(1, 2).contiguous()
+    noise = torch.full((M, T_HIST), 0.02, device=dev)
+    l = lc.chol_reference(_matern_spd(torch, x, noise, dev)).contiguous()
+    l[1, 40, 40] = 0.0
+    l[2, T_HIST - 1, T_HIST - 1] = -1.0
+    y = torch.tensor(rng.normal(size=(M, T_HIST)), dtype=torch.float32, device=dev)
+    z, alpha, logdet = lc.solve_vec(l, y)
+    _, _, want_ld = lc.solve_vec_reference(l, y)
+    torch.cuda.synchronize()
+    rest = [0] + list(range(3, M))
+    bad_ok = bool(logdet[1] == -float("inf") and want_ld[1] == -float("inf")
+                  and not torch.isfinite(z[1]).all() and not torch.isfinite(alpha[1]).all()
+                  and torch.isnan(logdet[2]) and torch.isnan(want_ld[2])
+                  and all(torch.isfinite(a[rest]).all() for a in (z, alpha, logdet)))
+    log(f"  solve_vec zero / negative diagonal entry gives inf / NaN only there: {bad_ok}")
+    return ok and bad_ok
 
 
 def _tensors(torch, arrays, dev, dtype):
@@ -650,7 +780,8 @@ def run_monthly(torch, bt, dev, seed, report):
     n_leaves = -(-T_SSP_M // lb.DEFAULT_BLOCK)  # the blocked NLML's leaves: 9 at T = 1032
     n_chunks = -(-pack.uh.shape[0] // HIST_CHUNK)
     expected = {"dba_update": 0, "dba_update_split": 2 * 10, "chol_solve": 0,
-                "tri_inv": n_leaves * MONTHLY_NITS, "chol": n_leaves * MONTHLY_NITS, "dtw_cost": 0}
+                "tri_inv": n_leaves * MONTHLY_NITS, "chol": n_leaves * MONTHLY_NITS, "dtw_cost": 0,
+                "solve_vec": 0}
     # One blocked NLML per SSP fit step; on the library route, a factorisation
     # and a triangular inverse per historical fit step and per posterior.
     expected_routes = {"kernel": 0, "blocked": MONTHLY_NITS,
@@ -872,7 +1003,7 @@ def run_subgradient(torch, bt, inputs, dev, report):
     launches = bt.launch_counts()
     n_epochs = epochs["hist", torch.float32] + epochs["ssp", torch.float32]
     expected = {"dba_update": R * n_epochs, "dba_update_split": 0, "chol_solve": 2 * (PARITY_NITS + 1),
-                "tri_inv": 2 * (PARITY_NITS + 1), "chol": 0, "dtw_cost": n_epochs}
+                "tri_inv": 2 * (PARITY_NITS + 1), "chol": 0, "dtw_cost": n_epochs, "solve_vec": 0}
     log(f"[subgradient] step f32 on the card, {PARITY_NITS} Adam steps: {dt:.2f} s; launches "
         f"{launches} (expected {expected})")
     report["subgradient_launches"] = launches
@@ -981,6 +1112,218 @@ def run_fast_routes(torch, bt, inputs, dev, step_out, ems, scratch_out):
     return ok
 
 
+def library_scenarios(bt, inputs):
+    """The flagship inputs as the library API's containers: per scenario the
+    historical and SSP ``ModelCollection`` of its real models (no model
+    padding, each model with its own number of realisations) on yearly time
+    coordinates, and the observations as one ``ProcessModel``."""
+    hb, hm, sb, sm, obs, mm = inputs
+    dims = ("realisation", "time")
+
+    def years(start, n):
+        return (np.datetime64(str(start), "Y") + np.arange(n)).astype("datetime64[ns]")
+
+    t_hist, t_ssp = years(1850, hb.shape[-1]), years(1850 + hb.shape[-1], sb.shape[-1])
+
+    def collection(block, mask, real, time):
+        return bt.ModelCollection([
+            bt.ProcessModel(bt.DimArray(block[k, : int(mask[k].sum())].copy(), dims,
+                                        {"time": time.copy()}, name="tas"), f"model{k}")
+            for k in range(block.shape[0]) if real[k] > 0
+        ])
+
+    observations = bt.ProcessModel(bt.DimArray(obs.copy(), dims, {"time": t_hist.copy()},
+                                               name="tas"), "Observations")
+    return [(collection(hb[si], hm[si], mm[si], t_hist), collection(sb[si], sm[si], mm[si], t_ssp))
+            for si in range(hb.shape[0])], observations
+
+
+def _posteriors_f64_on_cpu(bt, collection):
+    """A copy of a fitted collection with its posterior moments in float64
+    on the CPU."""
+    models = []
+    for pm in collection:
+        arrays = {k: v.astype(np.float64) for k, v in pm.distribution.to_arrays().items()}
+        copy = bt.ProcessModel(pm.data, pm.name)
+        copy.distribution = bt.Posterior.from_arrays(arrays, pm.blank_template(), device="cpu")
+        models.append(copy)
+    return bt.ModelCollection(models)
+
+
+def _library_pass(torch, bt, inputs, dev, dtype, nits, weighter=None, scenarios=None, check=None):
+    """``run_scenario`` for each scenario (all when ``scenarios`` is None) on
+    fresh collections; ``check(si, n_models)`` is called right after each
+    scenario with the launch counters as that scenario left them.  Returns
+    the results, the fitted collections and the wall time of the runs."""
+    built, observations = library_scenarios(bt, inputs)
+    picked = range(len(built)) if scenarios is None else scenarios
+    results, wall = [], 0.0
+    for si in picked:
+        hist, ssp = built[si]
+        bt.reset_launch_counts()
+        dt, res = _wall(torch, lambda: bt.run_scenario(
+            hist, ssp, observations, f"scenario{si}",
+            weighter=bt.LogLikelihoodWeight() if weighter is None else weighter,
+            emulator=bt.GPDTW1D(dtype=dtype), n_optim_nits=nits, device=dev))
+        wall += dt
+        if check is not None:
+            check(si, len(hist))
+        results.append(res)
+    return results, [built[si] for si in picked], observations, wall
+
+
+def _bary(torch, results):
+    """(means, stddevs) of the scenarios' barycentres, each a list of (T,) tensors."""
+    return ([r.barycentre.gaussian.mean for r in results],
+            [torch.sqrt(r.barycentre.gaussian.variance) for r in results])
+
+
+def _library_options(torch, bt, dev, hist, ssp, observations, weights):
+    """Every weighter option, scheme and sigma mode on one scenario's
+    float32 posteriors on the card against float64 on the CPU at the same
+    posteriors; the four metrics finite."""
+    hist64, ssp64 = _posteriors_f64_on_cpu(bt, hist), _posteriors_f64_on_cpu(bt, ssp)
+    weighters = [
+        ("LogLikelihoodWeight", dict()),
+        ("LogLikelihoodWeight", dict(joint=True)),
+        ("LogLikelihoodWeight", dict(account_obs_uncertainty=True)),
+        ("LogLikelihoodWeight", dict(joint=True, account_obs_uncertainty=True)),
+        ("CRPSWeight", dict()),
+        ("CRPSWeight", dict(account_obs_uncertainty=True)),
+        ("CRPSWeight", dict(compat_variance_as_scale=True)),
+        ("KSDWeight", dict()),
+        ("KSDWeight", dict(compat_variance_as_scale=True)),
+        ("InverseSquareWeight", dict()),
+        ("UniformWeight", dict()),
+        ("ModelSimilarityWeight", dict(mode="single")),
+        ("ModelSimilarityWeight", dict(mode="temporal")),
+    ]
+    ok = True
+    for name, opts in weighters:
+        bt.reset_launch_counts()
+        dt, got = _wall(torch, lambda: getattr(bt, name)()(hist, observations, **opts))
+        counts = bt.launch_counts()
+        t0 = time.perf_counter()
+        want = getattr(bt, name)()(hist64, observations, **opts)
+        cpu_s = time.perf_counter() - t0
+        dw = float(np.abs(got.values - want.values).max())
+        sums = float(np.abs(got.values.sum(axis=0) - 1.0).max())
+        label = name + ("(" + ", ".join(f"{k}={v}" for k, v in opts.items()) + ")" if opts else "")
+        log(f"[library] {label}: f32 card {dt * 1e3:.1f} ms vs f64 CPU {cpu_s:.2f} s: max |dweight| "
+            f"{dw:.3e} (gate {WEIGHT_TOL}), |sum - 1| {sums:.1e}; chol {counts['chol']}, "
+            f"solve_vec {counts['solve_vec']} launches")
+        ok &= bool(np.isfinite(got.values).all()) and dw < WEIGHT_TOL and sums < 1e-5
+    for mode in ("w2", "compat", "mixture"):
+        dt, got = _wall(torch, lambda: bt.Barycentre()(ssp, weights, sigma_mode=mode))
+        want = bt.Barycentre()(ssp64, weights, sigma_mode=mode)
+        gap = max(_abs(got.gaussian.mean, want.gaussian.mean),
+                  _abs(torch.sqrt(got.gaussian.variance), torch.sqrt(want.gaussian.variance)))
+        log(f"[library] Barycentre(sigma_mode={mode!r}): f32 card {dt * 1e3:.1f} ms; card vs f64 CPU "
+            f"max |dmoment| {gap:.3e} degC (gate {PARITY_DEGC})")
+        ok &= gap < PARITY_DEGC
+    for name, args in (("MultiModelMean", ()), ("WeightedModelMean", (weights,))):
+        got = getattr(bt, name)()(ssp, *args)
+        want = getattr(bt, name)()(ssp64, *args)
+        gap = max(_abs(got.gaussian.mean, want.gaussian.mean),
+                  _abs(got.gaussian.stddev, want.gaussian.stddev))
+        log(f"[library] {name}: card vs CPU max |dmoment| {gap:.3e} degC (gate {PARITY_DEGC})")
+        ok &= gap < PARITY_DEGC
+    obs_values = observations.data.values
+    post, other = hist[0].distribution, hist[1].distribution
+    scores = {name: getattr(bt.metrics, name)(post, obs_values) for name in ("nll", "rmse", "crps")}
+    scores["w2_between_posteriors"] = bt.metrics.w2_between_posteriors(post, other)
+    x = post.gaussian.mean + 0.01
+    bt.reset_launch_counts()
+    scores["log_prob"] = float(post.log_prob(x))
+    log_prob_launches = bt.launch_counts()["solve_vec"]
+    scores64 = float(hist64[0].distribution.log_prob(x.double().cpu()))
+    log("[library] metrics of model 0's historical posterior: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in scores.items())
+        + f"; log_prob of one vector: {log_prob_launches} vector-solve launch, f64 CPU {scores64:.4f}")
+    ok &= all(np.isfinite(v) for v in scores.values()) and log_prob_launches == 1
+    ok &= abs(scores["log_prob"] - scores64) < LINALG_TOL * max(1.0, abs(scores64))
+    return ok
+
+
+def run_library(torch, bt, inputs, dev, step_out, report, nits=LIBRARY_NITS):
+    """Phase 9: the library API at full width (see the module docstring).
+    ``step_out`` is phase 4's output."""
+    ok = True
+    totals = dict.fromkeys(bt.launch_counts(), 0)
+    expected = {"dba_update": 2 * 10, "dba_update_split": 0, "chol_solve": 2 * (nits + 1),
+                "tri_inv": 2 * nits, "chol": 1, "dtw_cost": 0, "solve_vec": 2}
+    # Per collection a Cholesky-solve and a triangular inverse per Adam step
+    # and a Cholesky-solve for the posterior; one Cholesky of the weighter.
+    expected_routes = {"kernel": 2 * (2 * nits + 1) + 1, "blocked": 0, "library": 0}
+    log(f"[library] per scenario, expected launches {expected}, routes {expected_routes}")
+
+    def check(si, n_models):
+        nonlocal ok
+        launches, routes = bt.launch_counts(), bt.route_counts()
+        good = launches == expected and routes == expected_routes
+        log(f"[library] scenario {si} ({n_models} models): launches {launches}, routes {routes}: "
+            f"{'as expected' if good else 'NOT as expected'}")
+        ok &= good
+        for k, v in launches.items():
+            totals[k] += v
+
+    res32, fitted, observations, warm = _library_pass(torch, bt, inputs, dev, torch.float32, nits,
+                                                      check=check)
+    report["library_launches"] = totals
+    m32, s32 = _bary(torch, res32)
+    finite = all(bool(torch.isfinite(a).all()) for a in m32 + s32)
+    wsum = max(float(np.abs(r.weights.values.sum(axis=0) - 1.0).max()) for r in res32)
+    log(f"[library] run_scenario(LogLikelihoodWeight) x {len(res32)} scenarios, f32 on the card, "
+        f"{nits} Adam steps: {warm:.2f} s; finite={finite}, max |sum of weights - 1| {wsum:.1e}; "
+        f"launches in all {totals}")
+    ok &= finite and wsum < 1e-5 and totals["solve_vec"] > 0
+    log("[library] 2100 barycentre by scenario: " + ", ".join(
+        f"{m_[-1].item():.3f}+-{s_[-1].item():.3f}" for m_, s_ in zip(m32, s32)))
+
+    res64, _, _, dt = _library_pass(torch, bt, inputs, dev, torch.float64, nits)
+    m64, s64 = _bary(torch, res64)
+    dmean = max(_abs(a, b) for a, b in zip(m32, m64))
+    dstd = max(_abs(a, b) for a, b in zip(s32, s64))
+    dw = max(float(np.abs(a.weights.values - b.weights.values).max()) for a, b in zip(res32, res64))
+    log(f"[library] f64 on the card: {dt:.2f} s; f32 vs f64 max |dmean| {dmean:.3e} degC, max |dstd| "
+        f"{dstd:.3e} degC (gate {PARITY_DEGC}), max |dweight| {dw:.3e} (gate {WEIGHT_TOL})")
+    ok &= dmean < PARITY_DEGC and dstd < PARITY_DEGC and dw < WEIGHT_TOL
+    del res64, m64, s64
+
+    hist0, ssp0 = fitted[0]
+    ok &= _library_options(torch, bt, dev, hist0, ssp0, observations, res32[0].weights)
+
+    crps, _, _, dt = _library_pass(torch, bt, inputs, dev, torch.float32, nits,
+                                   weighter=bt.CRPSWeight(), scenarios=[0])
+    gap = max(_abs(crps[0].barycentre.gaussian.mean, step_out[0][0]),
+              _abs(torch.sqrt(crps[0].barycentre.gaussian.variance), step_out[1][0]))
+    dw = float(np.abs(crps[0].weights.values[:, 0] - step_out[2][0].cpu().numpy()).max())
+    log(f"[library] run_scenario(CRPSWeight) scenario 0 ({dt:.2f} s) vs the fused step: max "
+        f"|dmoment| {gap:.3e} degC (gate {PARITY_DEGC}), max |dweight| {dw:.3e}")
+    ok &= gap < PARITY_DEGC
+
+    walls, fits = [], []
+    for rep in range(LIBRARY_REPS):
+        res, timed, _, dt = _library_pass(torch, bt, inputs, dev, torch.float32, nits)
+        walls.append(dt)
+        fits.append(sum(r.fit_seconds for r in res))
+        log(f"[library] run {rep + 1}: {dt:.3f} s, of which the fits {fits[-1]:.3f} s")
+    weights_s = scheme_s = 0.0
+    for (hist, ssp), r in zip(timed, res):
+        dt, _ = _wall(torch, lambda: bt.LogLikelihoodWeight()(hist, observations))
+        weights_s += dt
+        dt, _ = _wall(torch, lambda: bt.Barycentre()(ssp, r.weights))
+        scheme_s += dt
+    wall = statistics.median(walls)
+    log(f"[library] {len(res)} scenarios, {nits} Adam steps: median {wall:.3f} s over {len(walls)} "
+        f"runs (warm-up {warm:.3f} s); fit {statistics.median(fits):.3f} s "
+        f"({statistics.median(fits) / wall:.1%}), weights {weights_s:.3f} s ({weights_s / wall:.1%}), "
+        f"scheme {scheme_s:.3f} s ({scheme_s / wall:.1%}); weights and scheme timed alone")
+    if not ok:
+        print("chip_smoke: the library API failed its check", file=sys.stderr)
+    return ok
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of the synthetic inputs")
@@ -1025,12 +1368,13 @@ def main(argv=None):
 
     # Phase 3: kernels against their plain versions.
     report = {"dba_update": [], "dba_update_split": [], "chol_solve": [], "tri_inv": [], "chol": [],
-              "dtw_cost": [], "dtw_cost_f64": []}
+              "dtw_cost": [], "dtw_cost_f64": [], "solve_vec": [], "solve_vec_f64": []}
     log("[kernels]")
     monthly_pack = bt.pack_dedup_campaign(synthetic_monthly(args.seed)[0])
     if not (check_cost_kernel(torch, inputs, monthly_pack, dev, report)
             and check_kernels(torch, inputs, dev, report)
-            and check_monthly_kernels(torch, monthly_pack, dev, report)):
+            and check_monthly_kernels(torch, monthly_pack, dev, report)
+            and check_solve_vec(torch, inputs, monthly_pack, dev, report)):
         print("chip_smoke: a kernel disagrees with its plain version", file=sys.stderr)
         return 1
     del monthly_pack
@@ -1041,7 +1385,7 @@ def main(argv=None):
                                                      PARITY_NITS))
     launches, routes = bt.launch_counts(), bt.route_counts()
     expected = {"dba_update": 2 * 10, "dba_update_split": 0, "chol_solve": 2 * (PARITY_NITS + 1),
-                "tri_inv": 2 * (PARITY_NITS + 1), "chol": 0, "dtw_cost": 0}
+                "tri_inv": 2 * (PARITY_NITS + 1), "chol": 0, "dtw_cost": 0, "solve_vec": 0}
     expected_routes = {"kernel": 4 * (PARITY_NITS + 1), "blocked": 0, "library": 0}
     log(f"[slice] f32 on the card, {PARITY_NITS} Adam steps: {dt:.2f} s; "
         f"launches {launches} (expected {expected}); routes {routes} (expected {expected_routes})")
@@ -1108,10 +1452,15 @@ def main(argv=None):
         print("chip_smoke: a fast fit route failed its check", file=sys.stderr)
         return 1
 
+    # Phase 9: the library API.
+    if not run_library(torch, bt, inputs, dev, step_out, report):
+        return 1
+
     # Each kernel's row: its time and bound at the first shape it was checked
     # at (the annual T = 165 for B1-B3, the leaves for B4, T = 1980 for B6,
-    # the subgradient epoch cost at T = 165 for B7), and its launches in the
-    # run of the path it serves (annual, monthly or subgradient).
+    # the subgradient epoch cost at T = 165 for B7, one scenario's historical
+    # factors for B5), and its launches in the run of the path it serves
+    # (annual, monthly, subgradient or library).
     src = {
         "dba_update": ("bayesian_ensembling_tpu_torch/csrc/dba_update.cu",
                        "bayesian_ensembling_tpu/ops/dtw_pallas.py:337", launches),
@@ -1127,6 +1476,9 @@ def main(argv=None):
         "dtw_cost": ("bayesian_ensembling_tpu_torch/csrc/dtw_cost.cu",
                      "bayesian_ensembling_tpu/ops/dtw_pallas.py:34",
                      report["subgradient_launches"]),
+        "solve_vec": ("bayesian_ensembling_tpu_torch/csrc/solve_vec.cu",
+                      "bayesian_ensembling_tpu/ops/linalg_pallas.py:325",
+                      report["library_launches"]),
     }
     kernels = []
     for name, (source, replaces, path_launches) in src.items():
@@ -1138,7 +1490,8 @@ def main(argv=None):
             "launches_by_path": {"annual": launches[name],
                                  "monthly": report["monthly_launches"][name],
                                  "subgradient": report["subgradient_launches"][name],
-                                 "medoid": report["medoid_launches"][name]},
+                                 "medoid": report["medoid_launches"][name],
+                                 "library": report["library_launches"][name]},
             "max_abs_err": max(r["err"] for r in report[name]),
             "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": main_shape["library_ms"],

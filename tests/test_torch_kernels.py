@@ -235,6 +235,62 @@ def test_dtw_cost_kernel_serves_the_medoid_and_subgradient_paths(cuda_device):
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-12)
 
 
+@pytest.mark.parametrize("b,t", [(1, 1), (3, 31), (16, 33), (16, 86), (16, 165), (5, 1032)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-3), (torch.float64, 1e-10)])
+def test_solve_vec_kernel_matches_plain(cuda_device, b, t, dtype, tol):
+    """T = 31 / 33 straddle one 32-row panel; T = 1032 is 33 panels with a
+    partial last one."""
+    rng = np.random.default_rng(200 + t)
+    k = torch.from_numpy(make_spd(rng, b, t)).to(cuda_device, dtype)
+    y = torch.from_numpy(rng.normal(size=(b, t))).to(cuda_device, dtype)
+    l = tlc.chol_reference(k).contiguous()
+    reset_launch_counts()
+    got = tlc.solve_vec(l, y)
+    assert launch_counts()["solve_vec"] == 1
+    want = tlc.solve_vec_reference(l, y)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and rel_err(g, w) < tol
+    # The JAX-layout wrapper is the same kernel behind two transposes.
+    zt, at, ld = tlc.solve_vec_batched(l.permute(2, 1, 0), y.T)
+    assert torch.equal(zt.T, got[0]) and torch.equal(at.T, got[1]) and torch.equal(ld, got[2])
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-3), (torch.float64, 1e-10)])
+def test_chol_then_solve_vec_equals_fused_kernel(cuda_device, dtype, tol):
+    rng = np.random.default_rng(7)
+    k = torch.from_numpy(make_spd(rng, 16, 165)).to(cuda_device, dtype)
+    y = torch.from_numpy(rng.normal(size=(16, 165))).to(cuda_device, dtype)
+    reset_launch_counts()
+    got = tlc.chol_solve_composed(k, y)
+    assert launch_counts()["chol"] == 1 and launch_counts()["solve_vec"] == 1
+    want = tlc.chol_solve(k, y)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert rel_err(g, w) < tol
+
+
+def test_solve_vec_kernel_bad_diagonal_is_not_trapped(cuda_device):
+    """A zero diagonal entry gives non-finite z / alpha and -inf logdet, a
+    negative one NaN logdet, in that matrix only (as the plain version)."""
+    rng = np.random.default_rng(4)
+    l = np.linalg.cholesky(make_spd(rng, 4, 40))
+    l[1, 10, 10] = 0.0
+    l[2, 39, 39] = -1.0
+    l_t = torch.from_numpy(l).to(cuda_device, torch.float32)
+    y = torch.from_numpy(rng.normal(size=(4, 40))).to(cuda_device, torch.float32)
+    z, alpha, logdet = tlc.solve_vec(l_t, y)
+    torch.cuda.synchronize()
+    assert logdet[1] == -float("inf") and not torch.isfinite(z[1]).all()
+    assert not torch.isfinite(alpha[1]).all()
+    assert torch.isnan(logdet[2]) and torch.isfinite(z[2]).all()
+    for out in (z, alpha, logdet):
+        assert torch.isfinite(out[[0, 3]]).all()
+    z_ref, _, ld_ref = tlc.solve_vec_reference(l_t, y)
+    assert ld_ref[1] == -float("inf") and torch.isnan(ld_ref[2])
+    assert rel_err(z[[0, 2, 3]], z_ref[[0, 2, 3]]) < 1e-3
+
+
 def test_library_builds_for_sm90a(cuda_device):
     _build.library()
     assert _build.build_info["path"].endswith(".so")

@@ -154,16 +154,24 @@ def test_emulate_marginals_return_flags():
 
 
 def test_imports_without_jax():
-    """The port imports with JAX blocked, and pulls in nothing of the JAX package."""
+    """The whole port, every module of it, imports with JAX, flax and optax
+    blocked, and pulls in nothing of the JAX package."""
     code = (
-        "import sys\n"
-        "sys.modules['jax'] = None\n"
+        "import sys, importlib, pkgutil\n"
+        "for name in ('jax', 'flax', 'optax'):\n"
+        "    sys.modules[name] = None\n"
         "import bayesian_ensembling_tpu_torch as bt\n"
+        "for info in pkgutil.walk_packages(bt.__path__, bt.__name__ + '.'):\n"
+        "    importlib.import_module(info.name)\n"
+        "for name in ('data', 'coords', 'weights', 'schemes', 'metrics', 'pipeline',"
+        " 'models.gp_dtw', 'models.mean_field', 'ops.distributions', 'ops.wasserstein',"
+        " 'io.timeutils', 'utils.config', 'utils.profiles'):\n"
+        "    assert bt.__name__ + '.' + name in sys.modules, name\n"
         "bad = [m for m in sys.modules if m == 'bayesian_ensembling_tpu'"
         " or m.startswith('bayesian_ensembling_tpu.')]\n"
         "assert not bad, bad\n"
         "assert bt.launch_counts() == {'dba_update': 0, 'dba_update_split': 0, 'chol_solve': 0,"
-        " 'tri_inv': 0, 'chol': 0, 'dtw_cost': 0}\n"
+        " 'tri_inv': 0, 'chol': 0, 'dtw_cost': 0, 'solve_vec': 0}\n"
         "assert bt.route_counts() == {'kernel': 0, 'blocked': 0, 'library': 0}\n"
     )
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
