@@ -4,61 +4,66 @@
 //   bayesian_ensembling_tpu/ops/linalg_pallas.py::_chol_kernel
 //   (public entry cholesky_batched).  Its hot caller is the recursive blocked
 //   NLML (ops/linalg_blocked.py), which factors the 128 x 128 diagonal blocks
-//   of the monthly SSP batch (B=65) with it.
+//   of the monthly SSP batch (B=65) with it; the library API factors one
+//   scenario's posterior covariances (B=16, T=165 and 86).
 //
-// What bounds it on an H100: T^3/3 flops per matrix (0.7 MFLOP at T=128) in
-// a chain of T dependent column steps.  At B=65 (fewer blocks than the 132
-// SMs) it is latency-bound: the time is T steps of two barriers and one
-// trailing update spread over the block.  Device memory traffic is one read
-// of K and one write of L.
+// What bounds it on an H100: T^3/3 flops per matrix (0.7 MFLOP at T=128) and
+// one read of K's lower triangle and one write of L are worth a few
+// microseconds; with one block per matrix and B below the 132 SMs the time
+// is the dependent chain of the factorisation.
 //
-// Design: the column loop of the fused Cholesky-solve (chol_factorise.cuh)
-// without its solve hooks.  One block of 512 threads per matrix, K in
-// dynamic shared memory with an odd leading dimension (66 KB at T=128 in
-// f32); T <= 240 in f32 and T <= 169 in f64, the launcher refuses more.  A
-// non-positive pivot gives NaN in that matrix only; L is written with zeros
-// above the diagonal.
+// Design: the panel-blocked body of chol_factorise.cuh (32-column panels:
+// the diagonal block in one warp's registers, the rows below two threads
+// each, the trailing update as register-tiled 32 x 32 blocks; three
+// barriers per panel) without a panel hook.  One block of 256 threads per
+// matrix, K's lower triangle in dynamic shared memory with rows on 16-byte
+// boundaries (68 KB at T=128 in f32); T <= 240 in f32 and T <= 170 in f64,
+// the launcher refuses more.  A non-positive pivot gives NaN in that matrix
+// only, from that column on; L is written with zeros above the diagonal.
 #include "chol_factorise.cuh"
 
 namespace {
 
-constexpr int kThreads = 512;
+// Threads per block.  256 and 512 take the same time in float32 (phase
+// clocks, T = 165 and 128); 256 leaves each thread 255 registers, which ends
+// the float64 kernel's spills.
+#ifndef BET_CHOL_THREADS
+#define BET_CHOL_THREADS 256
+#endif
+constexpr int kThreads = BET_CHOL_THREADS;
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     chol_kernel(const T* __restrict__ ky, T* __restrict__ l_out, int t) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int ld = bet::smem_ld(t);
+  const int ld = bet::smem_ld<T>(t);
   T* a = reinterpret_cast<T*>(smem);  // t x ld, factorised in place
-  T* col = a + static_cast<size_t>(t) * ld;
 
-  const int tid = threadIdx.x;
   const size_t mat0 = static_cast<size_t>(blockIdx.x) * t * t;
-  for (int q = tid; q < t * t; q += kThreads) {
-    const int i = q / t;
-    a[i * ld + (q - i * t)] = ky[mat0 + q];
-  }
+  BET_PHASE_CLOCK_RESET();
+  BET_PHASE_CLOCK();
+  bet::load_lower<kThreads, false>(a, ld, ky + mat0, t);
   __syncthreads();
+  BET_PHASE_CLOCK();  // the load
 
-  bet::chol_factorise<kThreads>(a, ld, col, t, [](int, T, T) {}, [](int, T) {});
+  bet::chol_factorise<kThreads>(a, ld, t, [](int, int, const T*, T*) {});
 
-  for (int q = tid; q < t * t; q += kThreads) {
-    const int i = q / t;
-    const int j = q - i * t;
-    l_out[mat0 + q] = j <= i ? a[i * ld + j] : T(0);
-  }
+  bet::store_lower<kThreads>(l_out + mat0, a, ld, t);
+  BET_PHASE_CLOCK();  // the store, as thread 0 sees it
 }
 
 template <typename T>
 size_t chol_smem_bytes(int t) {
-  return sizeof(T) * (static_cast<size_t>(t) * bet::smem_ld(t) + static_cast<size_t>(t));
+  return sizeof(T) * static_cast<size_t>(t) * bet::smem_ld<T>(t);
 }
 
 template <typename T>
 int launch_chol(const void* ky, void* l, int b, int t, void* stream) {
+  static bet::SmemGrant grant;
   if (b <= 0 || t <= 0) return cudaSuccess;
   const size_t smem = chol_smem_bytes<T>(t);
-  cudaError_t err = bet::set_dynamic_smem(chol_kernel<T>, smem);
+  cudaError_t err = bet::grant_dynamic_smem(chol_kernel<T>, smem,
+                                            bet::chol_factorise_static_bytes<T>(), grant);
   if (err != cudaSuccess) return err;
   chol_kernel<T><<<b, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(ky), static_cast<T*>(l), t);

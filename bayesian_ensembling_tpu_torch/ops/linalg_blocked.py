@@ -34,7 +34,7 @@ from bayesian_ensembling_tpu_torch.ops.linalg_cuda import chol, tri_inv
 __all__ = ["DEFAULT_BLOCK", "nlml_terms_blocked"]
 
 # 128: the JAX package's block, which also keeps the diagonal blocks well
-# inside the kernels' shared-memory cap (66 KB per block at T = 128 in f32).
+# inside the kernels' shared-memory cap (68 KB per block at T = 128 in f32).
 DEFAULT_BLOCK = 128
 
 

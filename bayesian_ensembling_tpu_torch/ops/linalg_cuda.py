@@ -69,16 +69,29 @@ __all__ = [
 ]
 
 
+def _smem_ld(t: int, itemsize: int) -> int:
+    """Leading dimension of a T x T matrix in the kernels' shared memory, as
+    ``smem_ld`` of ``csrc/warp_tile.cuh`` computes it: rows start on 16-byte
+    boundaries and are not a multiple of 128 bytes long."""
+    vec = 16 // itemsize
+    ld = -(-t // vec) * vec
+    if ld * itemsize % 128 == 0:
+        ld += vec
+    return ld
+
+
 def _kernel_smem_bytes(t: int, itemsize: int) -> int:
     """Shared memory of the larger of the NLML's two kernels at T, as the
-    launchers in ``csrc/chol_solve.cu`` and ``csrc/tri_inv.cu`` size it
-    (the Cholesky-solve adds one static pivot scalar)."""
-    square = t * (t | 1)
-    return itemsize * max(square + 4 * t + 1, square + 2 * t)
+    launchers size it: the fused Cholesky-solve (``csrc/chol_solve.cu``)
+    holds the matrix, two T-vectors and the factorisation body's 96
+    values of static scratch (``csrc/chol_factorise.cuh``); the triangular
+    inverse (``csrc/tri_inv.cu``) holds the matrix alone, and the Cholesky
+    (``csrc/chol.cu``) the matrix and the 96 values."""
+    return itemsize * (t * _smem_ld(t, itemsize) + 2 * t + 96)
 
 
 # Largest T whose fused Cholesky-solve and triangular inverse fit one block's
-# shared memory: 239 in float32, 167 in float64.
+# shared memory: 239 in float32, 168 in float64.
 KERNEL_T_CAP = {
     dtype: _build.largest_t(lambda t, e=dtype.itemsize: _kernel_smem_bytes(t, e))
     for dtype in (torch.float32, torch.float64)
@@ -218,8 +231,8 @@ def chol_solve(ky: torch.Tensor, y: torch.Tensor):
 def chol(ky: torch.Tensor) -> torch.Tensor:
     """Lower Cholesky factor of ``ky`` ``(B, T, T)`` (only the lower
     triangle is read), with zeros above the diagonal.  A non-positive pivot
-    gives NaN in that matrix (from that column on in the kernel, everywhere
-    in the plain version)."""
+    gives NaN in that matrix only (from that column on in the kernel,
+    everywhere in the plain version)."""
     b, t, t2 = ky.shape
     if t != t2:
         raise ValueError(f"expected (B, T, T), got {ky.shape}")

@@ -1,0 +1,148 @@
+"""Where the cycles of the Cholesky, Cholesky-solve and triangular-inverse
+kernels go, phase by phase, on the card.
+
+Run from the repository root on a machine with an NVIDIA GPU and nvcc::
+
+    python3 -m bayesian_ensembling_tpu_torch.utils.linalg_phase_clocks [--sizes 165 128 86]
+        [--threads 256 512]
+
+For a card whose profilers (ncu, nsys) are out of reach, the kernels carry
+``BET_PHASE_CLOCK()`` marks that compile to nothing in the library's own
+build.  This script compiles ``csrc/chol.cu``, ``csrc/chol_solve.cu`` and
+``csrc/tri_inv.cu`` once more with ``-DBET_PHASE_CLOCKS`` (one library per
+source, beside the package's own, in ``build/torch_kernels/``), launches
+each at B = 16 and reads the SM cycle counter that thread 0 of block 0
+recorded at every mark: the load, then per 32-column panel the diagonal
+block, the rows under it and the trailing update (with the solve's hook),
+the backward substitution, the store; for the inverse the diagonal blocks
+and the two products of every doubling level.  ``--threads`` rebuilds the two
+Cholesky kernels with another block size (the inverse needs its 16 warps).
+Each result is checked against torch.linalg before its clocks are printed.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+from bayesian_ensembling_tpu_torch import _build
+
+KERNELS = {"chol": 2, "chol_solve": 6, "tri_inv": 2}  # source stem -> pointer arguments
+
+
+def build(name, threads):
+    """Compile ``csrc/<name>.cu`` with the phase clocks on; returns the loaded library."""
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    so = _build.BUILD_DIR / f"phase_clocks_{name}_{threads}.so"
+    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-DBET_PHASE_CLOCKS", f"-DBET_CHOL_THREADS={threads}",
+           "-shared", "-o", str(so), str(_build.CSRC / f"{name}.cu")]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed: {' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    notes = [line.strip() for line in (proc.stdout + proc.stderr).splitlines()
+             if "registers" in line or "spill" in line]
+    lib = ctypes.CDLL(str(so))
+    for suffix in ("f32", "f64"):
+        fn = getattr(lib, f"bet_{name}_{suffix}")
+        fn.argtypes = [ctypes.c_void_p] * KERNELS[name] + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    lib.bet_phase_clocks.argtypes = [ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_int)]
+    lib.bet_phase_clocks.restype = ctypes.c_int
+    return lib, notes
+
+
+def phases(lib):
+    """Cycles between consecutive marks of the last launch."""
+    marks = (ctypes.c_longlong * 256)()
+    n = ctypes.c_int()
+    rc = lib.bet_phase_clocks(marks, ctypes.byref(n))
+    if rc != 0:
+        raise RuntimeError(f"bet_phase_clocks: CUDA error {rc}")
+    return np.diff(np.array(marks[: n.value])).tolist()
+
+
+def make_spd(rng, b, t):
+    """Matern-3/2 Grams on sorted 1-D inputs plus noise, as the GP fit sees."""
+    x = np.sort(rng.normal(size=(b, t)), axis=1)
+    d = np.abs(x[:, :, None] - x[:, None, :]) / 1.3
+    k = (1.0 + np.sqrt(3.0) * d) * np.exp(-np.sqrt(3.0) * d)
+    return k + rng.uniform(0.05, 0.2, size=(b, t))[:, :, None] * np.eye(t)
+
+
+def launch(lib, symbol, *args):
+    for _ in range(3):  # the last launch's marks are read; the first two warm the caches
+        rc = getattr(lib, symbol)(*args, None)
+        if rc != 0:
+            raise RuntimeError(f"{symbol}: CUDA error {rc}")
+    return phases(lib)
+
+
+def rel(got, want):
+    return ((got - want).abs().max() / want.abs().max().clamp(min=1.0)).item()
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--sizes", type=int, nargs="+", default=[165, 128, 86], help="T of the matrices")
+    parser.add_argument("--threads", type=int, nargs="+", default=[256],
+                        help="block sizes of the two Cholesky kernels")
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("needs an NVIDIA GPU", file=sys.stderr)
+        return 1
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip())
+    b, ok = 16, True
+    inv, notes = build("tri_inv", args.threads[0])
+    print("tri_inv:", "; ".join(notes))
+    for threads in args.threads:
+        chol, notes = build("chol", threads)
+        print(f"chol, {threads} threads:", "; ".join(notes))
+        solve, notes = build("chol_solve", threads)
+        print(f"chol_solve, {threads} threads:", "; ".join(notes))
+        for dtype, sfx in ((torch.float32, "f32"), (torch.float64, "f64")):
+            tol = 1e-3 if dtype == torch.float32 else 1e-10
+            for t in args.sizes:
+                rng = np.random.default_rng(t)
+                k = torch.from_numpy(make_spd(rng, b, t)).to("cuda", dtype)
+                y = torch.from_numpy(rng.normal(size=(b, t))).to("cuda", dtype)
+                want_l = torch.linalg.cholesky(k).contiguous()
+                l, w = torch.empty_like(k), torch.empty_like(k)
+                z, alpha = torch.empty_like(y), torch.empty_like(y)
+                logdet = torch.empty(b, device="cuda", dtype=dtype)
+
+                d = launch(chol, f"bet_chol_{sfx}", k.data_ptr(), l.data_ptr(), b, t)
+                err = rel(l, want_l)
+                panels = [d[i:i + 3] for i in range(1, len(d) - 1, 3)]
+                print(f"{sfx} T={t} chol ({threads} threads): {sum(d)} cycles; load {d[0]}; panels "
+                      f"[diagonal block, rows, trailing] {panels}; store {d[-1]}; rel err {err:.1e}")
+                ok &= err < tol
+
+                d = launch(solve, f"bet_chol_solve_{sfx}", k.data_ptr(), y.data_ptr(), l.data_ptr(),
+                           z.data_ptr(), alpha.data_ptr(), logdet.data_ptr(), b, t)
+                want_alpha = torch.cholesky_solve(y[..., None], want_l)[..., 0]
+                err = max(rel(l, want_l), rel(alpha, want_alpha))
+                panels = [d[i:i + 3] for i in range(1, len(d) - 2, 3)]
+                print(f"{sfx} T={t} chol_solve ({threads} threads): {sum(d)} cycles; load {d[0]}; panels "
+                      f"[diagonal block, rows, hook and trailing] {panels}; backward {d[-2]}; "
+                      f"store {d[-1]}; rel err {err:.1e}")
+                ok &= err < tol
+
+                if threads == args.threads[0]:
+                    d = launch(inv, f"bet_tri_inv_{sfx}", want_l.data_ptr(), w.data_ptr(), b, t)
+                    err = rel(w, torch.linalg.inv(want_l))
+                    levels = [d[i:i + 2] for i in range(2, len(d) - 1, 2)]
+                    print(f"{sfx} T={t} tri_inv (512 threads): {sum(d)} cycles; load {d[0]}; diagonal "
+                          f"blocks {d[1]}; levels [L21 W11, -W22 P] {levels}; store {d[-1]}; "
+                          f"rel err {err:.1e}")
+                    ok &= err < tol
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -16,7 +16,8 @@ Phases, in order; any failure exits non-zero:
    epoch cost, N = 3,248 at T = 165 and 86; the medoid init's pairs,
    N = 45,472 at T = 165; the monthly N = 812 at T = 1980; T = 1), the DBA
    update (N = 3,248 pairs, T = 165 and 86, exact), the fused
-   Cholesky-solve and the triangular inverse (B = 112, T = 165 and 86), and
+   Cholesky-solve and the triangular inverse (B = 112, T = 165 and 86 in
+   float32, T = 165 in float64 too, each beside ``solve_triangular``), and
    one non-positive-definite input that must come back NaN; then the
    monthly path's kernels: the split DBA update (exact, at the monthly
    collections' N and T = 1980 / 1032, and against the fused kernel at
@@ -105,6 +106,7 @@ PARITY_DEGC = 0.01  # f32-vs-f64 gate on barycentre moments (bench.py's gate)
 PARITY_NITS = 500
 TIMING_NITS, TIMING_REPS = 2000, 3  # the faithful workload; median of 3 after a warm-up
 LINALG_TOL = 1e-3  # float32 kernel vs float32 plain version, relative to the largest entry
+LINALG_TOL_F64 = 1e-10  # float64 kernel vs float64 plain version: another summation order
 
 # The native-monthly campaign (benchmarks/monthly_bench.py all): 20 unique
 # historical models, 7 scenarios with 65 real SSP fits padded to M = 16.
@@ -307,47 +309,55 @@ def check_kernels(torch, inputs, dev, report):
         report["dba_update"].append(dict(t=t, err=err, ms=ms, plain_ms=plain_ms,
                                          work=_dba_work(n, t), library_ms=None))
 
-        # B2 / B3 on Matern Grams of this collection's features plus noise.
+        # B2 / B3 on Matern Grams of this collection's features plus noise,
+        # in float32 and, at the historical shape, in float64 too (the
+        # Grams are the float32 ones, widened).
         b = block.shape[0] * block.shape[1]
         x = b3.transpose(1, 2).contiguous()
         noise = torch.tensor(rng.uniform(0.005, 0.05, (b, t)), dtype=torch.float32, device=dev)
-        ky = _matern_spd(torch, x, noise, dev)
-        y = torch.tensor(rng.normal(size=(b, t)), dtype=torch.float32, device=dev)
-        got = lc.chol_solve(ky, y)
-        want = lc.chol_solve_reference(ky, y)
-        exact64 = lc.chol_solve_reference(ky.double(), y.double())
-        torch.cuda.synchronize()
-        rels = [_rel(g, w_) for g, w_ in zip(got, want)]
-        err = max(_abs(g, w_) for g, w_ in zip(got, want))
-        vs64 = (max(_rel(g, e) for g, e in zip(got, exact64)),
-                max(_rel(w_, e) for w_, e in zip(want, exact64)))
-        ms = _cuda_ms(torch, lambda: lc.chol_solve(ky, y), 50)
-        plain_ms = _cuda_ms(torch, lambda: lc.chol_solve_reference(ky, y), 10)
-        log(f"  chol_solve B={b} T={t}: rel err (L, z, alpha, logdet) = "
-            + ", ".join(f"{e:.2e}" for e in rels)
-            + f" (tol {LINALG_TOL}); vs f64: kernel {vs64[0]:.2e}, plain {vs64[1]:.2e}; "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-        ok &= max(rels) < LINALG_TOL
-        report["chol_solve"].append(dict(t=t, err=err, ms=ms, plain_ms=plain_ms,
-                                         work=_chol_solve_work(b, t), library_ms=None))
+        ky32 = _matern_spd(torch, x, noise, dev)
+        y32 = torch.tensor(rng.normal(size=(b, t)), dtype=torch.float32, device=dev)
+        for dtype in (torch.float32, torch.float64) if t == T_HIST else (torch.float32,):
+            ky, y = ky32.to(dtype), y32.to(dtype)
+            f32 = dtype == torch.float32
+            tol, tag, suffix = (LINALG_TOL, "", "") if f32 else (LINALG_TOL_F64, " f64", "_f64")
+            e = ky.element_size()
+            got = lc.chol_solve(ky, y)
+            want = lc.chol_solve_reference(ky, y)
+            exact64 = lc.chol_solve_reference(ky.double(), y.double())
+            torch.cuda.synchronize()
+            rels = [_rel(g, w_) for g, w_ in zip(got, want)]
+            err = max(_abs(g, w_) for g, w_ in zip(got, want))
+            vs64 = (max(_rel(g, e_) for g, e_ in zip(got, exact64)),
+                    max(_rel(w_, e_) for w_, e_ in zip(want, exact64)))
+            ms = _cuda_ms(torch, lambda: lc.chol_solve(ky, y), 50)
+            plain_ms = _cuda_ms(torch, lambda: lc.chol_solve_reference(ky, y), 10)
+            log(f"  chol_solve{tag} B={b} T={t}: rel err (L, z, alpha, logdet) = "
+                + ", ".join(f"{r_:.2e}" for r_ in rels)
+                + f" (tol {tol}); vs f64: kernel {vs64[0]:.2e}, plain {vs64[1]:.2e}; "
+                f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+            ok &= max(rels) < tol
+            report["chol_solve" + suffix].append(dict(t=t, err=err, ms=ms, plain_ms=plain_ms,
+                                                      work=_chol_solve_work(b, t, e), library_ms=None))
 
-        l = want[0].contiguous()  # torch.linalg returns a column-major factor
-        got_w = lc.tri_inv(l)
-        want_w = lc.tri_inv_reference(l)
-        exact_w = lc.tri_inv_reference(l.double())
-        torch.cuda.synchronize()
-        rel = _rel(got_w, want_w)
-        err = _abs(got_w, want_w)
-        ms = _cuda_ms(torch, lambda: lc.tri_inv(l), 50)
-        plain_ms = _cuda_ms(torch, lambda: lc.tri_inv_reference(l), 10)
-        eye = torch.eye(t, device=dev).expand_as(l)
-        lib_ms = _cuda_ms(torch, lambda: torch.linalg.solve_triangular(l, eye, upper=False), 10)
-        log(f"  tri_inv B={b} T={t}: rel err {rel:.2e} (tol {LINALG_TOL}); vs f64: kernel "
-            f"{_rel(got_w, exact_w):.2e}, plain {_rel(want_w, exact_w):.2e}; "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, solve_triangular {lib_ms:.4f} ms")
-        ok &= rel < LINALG_TOL
-        report["tri_inv"].append(dict(t=t, err=err, ms=ms, plain_ms=plain_ms,
-                                      work=_triangle_work(b, t), library_ms=lib_ms))
+            l = want[0].contiguous()  # torch.linalg returns a column-major factor
+            got_w = lc.tri_inv(l)
+            want_w = lc.tri_inv_reference(l)
+            exact_w = lc.tri_inv_reference(l.double())
+            torch.cuda.synchronize()
+            rel = _rel(got_w, want_w)
+            err = _abs(got_w, want_w)
+            ms = _cuda_ms(torch, lambda: lc.tri_inv(l), 50)
+            plain_ms = _cuda_ms(torch, lambda: lc.tri_inv_reference(l), 10)
+            eye = torch.eye(t, dtype=dtype, device=dev).expand_as(l)
+            lib_ms = _cuda_ms(torch, lambda: torch.linalg.solve_triangular(l, eye, upper=False), 10)
+            log(f"  tri_inv{tag} B={b} T={t}: rel err {rel:.2e} (tol {tol}); vs f64: kernel "
+                f"{_rel(got_w, exact_w):.2e}, plain {_rel(want_w, exact_w):.2e}; "
+                f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, solve_triangular {lib_ms:.4f} ms")
+            ok &= rel < tol
+            report["tri_inv" + suffix].append(dict(t=t, err=err, ms=ms, plain_ms=plain_ms,
+                                                   work=_triangle_work(b, t, e), library_ms=lib_ms))
+        ky, y = ky32, y32
 
         bad = ky.clone()
         bad[5] = -torch.eye(t, device=dev)
@@ -1368,7 +1378,8 @@ def main(argv=None):
 
     # Phase 3: kernels against their plain versions.
     report = {"dba_update": [], "dba_update_split": [], "chol_solve": [], "tri_inv": [], "chol": [],
-              "dtw_cost": [], "dtw_cost_f64": [], "solve_vec": [], "solve_vec_f64": []}
+              "dtw_cost": [], "dtw_cost_f64": [], "solve_vec": [], "solve_vec_f64": [],
+              "chol_solve_f64": [], "tri_inv_f64": []}
     log("[kernels]")
     monthly_pack = bt.pack_dedup_campaign(synthetic_monthly(args.seed)[0])
     if not (check_cost_kernel(torch, inputs, monthly_pack, dev, report)

@@ -62,12 +62,24 @@ def test_dba_update_kernel_matches_plain(cuda_device, t, dtype):
     assert torch.equal(got_s, want_s)
 
 
-@pytest.mark.parametrize("t", [1, 13, 86, 165])
+# The panel designs' edges: one column, one short panel, one row short of a
+# panel, a whole panel, one row over, whole and ragged multiples, and the
+# largest T the shared memory takes (239 in float32, 168 in float64).
+PANEL_SIZES = [1, 2, 13, 31, 32, 33, 64, 86, 128, 165, "cap"]
+
+
+def _size(t, dtype):
+    return tlc.KERNEL_T_CAP[dtype] if t == "cap" else t
+
+
+@pytest.mark.parametrize("b", [1, 16, 200])
+@pytest.mark.parametrize("t", PANEL_SIZES)
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-3), (torch.float64, 1e-10)])
-def test_linalg_kernels_match_plain(cuda_device, t, dtype, tol):
+def test_linalg_kernels_match_plain(cuda_device, t, dtype, tol, b):
+    t = _size(t, dtype)
     rng = np.random.default_rng(t)
-    k = torch.from_numpy(make_spd(rng, 16, t)).to(cuda_device, dtype)
-    y = torch.from_numpy(rng.normal(size=(16, t))).to(cuda_device, dtype)
+    k = torch.from_numpy(make_spd(rng, b, t)).to(cuda_device, dtype)
+    y = torch.from_numpy(rng.normal(size=(b, t))).to(cuda_device, dtype)
     got = tlc.chol_solve(k, y)
     want = tlc.chol_solve_reference(k, y)
     for g, w in zip(got, want):
@@ -77,19 +89,42 @@ def test_linalg_kernels_match_plain(cuda_device, t, dtype, tol):
     w_want = tlc.tri_inv_reference(l)
     torch.cuda.synchronize()
     assert rel_err(w_got, w_want) < tol
+    assert (w_got.triu(1) == 0).all() and (got[0].triu(1) == 0).all()
 
 
-def test_chol_solve_kernel_non_pd_gives_nan(cuda_device):
-    rng = np.random.default_rng(0)
-    k = make_spd(rng, 3, 20)
-    k[1] = -np.eye(20)
+def _with_bad_pivot(rng, t, column):
+    """Three Grams; the middle one gets a non-positive pivot at ``column``."""
+    k = make_spd(rng, 3, t)
+    k[1, column, column] = -1.0
+    return k
+
+
+def _nan_from_column(l, column):
+    """Entries of the lower triangle are NaN from ``column`` on and finite
+    before it."""
+    t = l.shape[-1]
+    low = torch.tril(torch.ones((t, t), dtype=torch.bool, device=l.device))
+    late = low & (torch.arange(t, device=l.device)[None, :] >= column)
+    return bool(torch.isnan(l[late]).all() and torch.isfinite(l[low & ~late]).all())
+
+
+# A non-positive pivot in the first, a middle and the (ragged) last panel.
+BAD_PIVOTS = [(86, 5), (86, 40), (86, 85), (165, 0), (165, 100), (165, 164)]
+
+
+@pytest.mark.parametrize("t,column", BAD_PIVOTS)
+def test_chol_solve_kernel_non_pd_gives_nan(cuda_device, t, column):
+    rng = np.random.default_rng(column)
     l, z, alpha, logdet = tlc.chol_solve(
-        torch.from_numpy(k).to(cuda_device, torch.float32),
-        torch.from_numpy(rng.normal(size=(3, 20))).to(cuda_device, torch.float32),
+        torch.from_numpy(_with_bad_pivot(rng, t, column)).to(cuda_device, torch.float32),
+        torch.from_numpy(rng.normal(size=(3, t))).to(cuda_device, torch.float32),
     )
     torch.cuda.synchronize()
+    assert _nan_from_column(l[1], column)
+    assert torch.isnan(z[1, column:]).all() and torch.isfinite(z[1, :column]).all()
     assert torch.isnan(logdet[1]) and torch.isnan(alpha[1]).all()
     assert torch.isfinite(logdet[[0, 2]]).all() and torch.isfinite(alpha[[0, 2]]).all()
+    assert torch.isfinite(l[[0, 2]]).all() and torch.isfinite(z[[0, 2]]).all()
 
 
 @pytest.mark.parametrize("t", [2, 9, 165, 1032])
@@ -124,11 +159,14 @@ def test_dba_update_split_chunks_its_scratch(cuda_device, monkeypatch):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
-@pytest.mark.parametrize("t", [1, 13, 128, 169])
+@pytest.mark.parametrize("b", [1, 16, 200])
+@pytest.mark.parametrize("t", PANEL_SIZES + [169, 170])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-3), (torch.float64, 1e-10)])
-def test_chol_kernel_matches_plain(cuda_device, t, dtype, tol):
+def test_chol_kernel_matches_plain(cuda_device, t, dtype, tol, b):
+    """T = 170 is the largest the Cholesky kernel alone takes in float64."""
+    t = _size(t, dtype)
     rng = np.random.default_rng(100 + t)
-    k = torch.from_numpy(make_spd(rng, 16, t)).to(cuda_device, dtype)
+    k = torch.from_numpy(make_spd(rng, b, t)).to(cuda_device, dtype)
     reset_launch_counts()
     got = tlc.chol(k)
     assert launch_counts()["chol"] == 1
@@ -138,14 +176,13 @@ def test_chol_kernel_matches_plain(cuda_device, t, dtype, tol):
     assert (got.triu(1) == 0).all()
 
 
-def test_chol_kernel_non_pd_gives_nan(cuda_device):
-    rng = np.random.default_rng(2)
-    k = make_spd(rng, 4, 128)
-    k[2] = -np.eye(128)
-    l = tlc.chol(torch.from_numpy(k).to(cuda_device, torch.float32))
+@pytest.mark.parametrize("t,column", BAD_PIVOTS + [(128, 0)])
+def test_chol_kernel_non_pd_gives_nan(cuda_device, t, column):
+    rng = np.random.default_rng(2 + column)
+    l = tlc.chol(torch.from_numpy(_with_bad_pivot(rng, t, column)).to(cuda_device, torch.float32))
     torch.cuda.synchronize()
-    assert torch.isnan(l[2].diagonal()).all()
-    assert torch.isfinite(l[[0, 1, 3]]).all()
+    assert _nan_from_column(l[1], column)
+    assert torch.isfinite(l[[0, 2]]).all()
 
 
 def test_blocked_nlml_f32_kernels_match_library_f64(cuda_device):

@@ -185,8 +185,9 @@ def test_chol_non_pd_gives_nan_in_its_slot_only():
         (1980, 28, torch.float32, "library"),  # monthly historical chunk
         (1032, None, torch.float32, "library"),  # the posterior: never blocked
         (1032, 65, torch.float64, "library"),  # the f32-only rule
-        (167, None, torch.float64, "kernel"),  # the float64 cap
-        (168, 112, torch.float64, "library"),
+        (167, None, torch.float64, "kernel"),
+        (168, 112, torch.float64, "kernel"),  # the float64 cap
+        (169, 112, torch.float64, "library"),
         (16, 4, torch.float16, "library"),  # the kernels take f32 and f64 only
     ],
 )
