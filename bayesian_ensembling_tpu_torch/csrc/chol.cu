@@ -46,7 +46,7 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
   BET_PHASE_CLOCK();  // the load
 
-  bet::chol_factorise<kThreads>(a, ld, t, [](int, int, const T*, T*) {});
+  bet::chol_factorise<kThreads>(a, ld, t, [](int) {}, [](int, int, const T*) {});
 
   bet::store_lower<kThreads>(l_out + mat0, a, ld, t);
   BET_PHASE_CLOCK();  // the store, as thread 0 sees it

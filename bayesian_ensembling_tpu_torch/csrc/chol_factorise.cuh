@@ -162,20 +162,24 @@ __device__ __forceinline__ void chol_panel_row(T* row, bool live, const T* l11, 
 // L11^T); the rest of the upper triangle is not touched.  All kThreads
 // threads of the block call it.
 //
-// After a panel's 32 columns are final (its diagonal block and every row
-// under it) and before the block moves on, every thread calls
-// on_panel(k0, nb, inv_diag, spare): k0 is the panel's first column, nb its
-// width (32, or less for a ragged last panel), inv_diag[c] =
-// 1 / L[k0+c][k0+c], and `spare` is 64 values of 16-byte aligned shared
-// memory that the hook may use until it returns.  The hook may read the
-// panel's columns of `a`; the trailing update that runs beside it touches
-// only columns to the right of the panel.
+// Two hooks let a caller run work beside the factorisation's own phases:
+//  * While warp 0 factorises the diagonal block of the panel at column k0,
+//    every thread of the other warps calls on_diag(k0).  The columns left of
+//    k0 are final then; the hook must not touch columns k0 on.
+//  * After a panel's 32 columns are final (its diagonal block and every row
+//    under it) and before the block moves on, every thread calls
+//    on_panel(k0, nb, inv_diag): k0 is the panel's first column, nb its
+//    width (32, or less for a ragged last panel), inv_diag[c] =
+//    1 / L[k0+c][k0+c].  The hook may read the panel's columns of `a`; the
+//    trailing update that runs beside it touches only columns to the right
+//    of the panel.
 //
 // A non-positive (or NaN) pivot gives NaN, which spreads through the panel
 // solve and the trailing update to the rest of the factor.  Ends on a
 // barrier, so the caller may read `a` at once.
-template <int kThreads, typename T, typename OnPanel>
-__device__ __forceinline__ void chol_factorise(T* a, int ld, int t, OnPanel on_panel) {
+template <int kThreads, typename T, typename OnDiag, typename OnPanel>
+__device__ __forceinline__ void chol_factorise(T* a, int ld, int t, OnDiag on_diag,
+                                               OnPanel on_panel) {
   __shared__ __align__(16) T scratch[3 * kPanel];
   T* inv_diag = scratch;
   T* ring = scratch + kPanel;
@@ -186,7 +190,10 @@ __device__ __forceinline__ void chol_factorise(T* a, int ld, int t, OnPanel on_p
     const int nb = min(kPanel, t - k0);
     const int below = k0 + kPanel;  // first row under the panel, if any
     T* l11 = a + k0 * ld + k0;
-    if (warp == 0) chol_diag_block(l11, ld, nb, min(kPanel, ld - k0), inv_diag, ring);
+    if (warp == 0)
+      chol_diag_block(l11, ld, nb, min(kPanel, ld - k0), inv_diag, ring);
+    else
+      on_diag(k0);
     __syncthreads();
     BET_PHASE_CLOCK();  // the diagonal block
 
@@ -198,7 +205,7 @@ __device__ __forceinline__ void chol_factorise(T* a, int ld, int t, OnPanel on_p
     __syncthreads();
     BET_PHASE_CLOCK();  // the rows under it
 
-    on_panel(k0, nb, inv_diag, ring);
+    on_panel(k0, nb, inv_diag);
 
     // A22 -= L21 L21^T over the 32 x 32 blocks (ib, jb), jb <= ib, of the
     // lower triangle of the rows and columns from `below` on.

@@ -9,9 +9,9 @@ slot.  Both DBA-update kernels compute the same function:
 
   * ``"fused"`` (``dba_update.cu``) keeps the move codes in shared memory,
     which caps T (:data:`FUSED_DBA_T_CAP`: 474 in float32);
-  * ``"split"`` (``dba_update_split.cu``) writes them to a device-memory
-    scratch, so only the series, the centre and three cost diagonals stay on
-    chip (:data:`SPLIT_DBA_T_CAP`: 11,621 in float32).  It takes the monthly
+  * ``"split"`` (``dba_update_split.cu``) writes them, 2 bits each, to a
+    device-memory scratch, so only the series and the centre stay on chip
+    (:data:`SPLIT_DBA_T_CAP`: 28,134 in float32).  It takes the monthly
     T = 1032 and 1980.
 
 CUDA tensors go to the kernels; CPU tensors go to the plain versions
@@ -47,9 +47,33 @@ def _fused_smem_bytes(t: int, itemsize: int) -> int:
     return itemsize * (t + 3 * (t + 1)) + t * t
 
 
+# dba_update_split.cu: rows per lane (the 2-bit codes of one band column are
+# one 16-byte word), columns in flight between two warps of a pair, and the
+# traceback's staged words.
+_SPLIT_BAND, _SPLIT_RING, _SPLIT_TILE_BYTES = 64, 128, 32 * 16
+
+
 def _split_smem_bytes(t: int, itemsize: int) -> int:
-    """``dba_update_split.cu`` and ``dtw_cost.cu``: the series, the centre
-    and three diagonals."""
+    """``dba_update_split.cu``, one pair, rounded up to 16 bytes: the
+    traceback's 32 code words, the centre in band-major order (64 rows a
+    band), the series, and a ring of 128 values and two counters between
+    each two warps of a pair (a warp takes 32 bands)."""
+    bands = -(-t // _SPLIT_BAND)
+    warps = -(-bands // 32)
+    raw = (_SPLIT_TILE_BYTES + itemsize * (_SPLIT_BAND * bands + t + _SPLIT_RING * (warps - 1))
+           + 8 * (warps - 1))
+    return -(-raw // 16) * 16
+
+
+def _split_scratch_bytes(t: int) -> int:
+    """Move-code scratch of one pair in ``dba_update_split.cu``: one 16-byte
+    word (64 codes of 2 bits) per band of 64 rows and column, about T^2 / 4
+    bytes."""
+    return 16 * -(-t // _SPLIT_BAND) * t
+
+
+def _cost_smem_bytes(t: int, itemsize: int) -> int:
+    """``dtw_cost.cu``: the series, the centre and three diagonals."""
     return itemsize * (2 * t + 3 * (t + 1))
 
 
@@ -63,12 +87,14 @@ SPLIT_DBA_T_CAP = {
     d: _build.largest_t(lambda t, e=d.itemsize: _split_smem_bytes(t, e))
     for d in (torch.float32, torch.float64)
 }
-# The cost kernel keeps the split kernel's on-chip state, so it has its cap.
-DTW_COST_T_CAP = SPLIT_DBA_T_CAP
-# Bound on the split kernel's move-code scratch: (2T-1) x T bytes per pair
-# (7.8 MB at T = 1980), so one launch takes up to 1,095 pairs at T = 1980
-# (the monthly historical chunk is 28 x 29 = 812) and the wrapper chunks
-# beyond.  8 GiB is a tenth of the H100's memory.
+DTW_COST_T_CAP = {
+    d: _build.largest_t(lambda t, e=d.itemsize: _cost_smem_bytes(t, e))
+    for d in (torch.float32, torch.float64)
+}
+# Bound on the split kernel's move-code scratch: about T^2 / 4 bytes per pair
+# (0.98 MB at T = 1980, so the monthly historical chunk of 28 x 29 = 812
+# pairs takes 0.74 GiB); beyond it the wrapper chunks.  8 GiB is a tenth of
+# the H100's memory.
 SPLIT_SCRATCH_BYTES = 8 << 30
 
 
@@ -93,7 +119,7 @@ def dba_update_batch_reference(
 
 def _launch_split(centers, series, sums, counts):
     n, t = centers.shape
-    per_pair = (2 * t - 1) * t
+    per_pair = _split_scratch_bytes(t)
     chunk = max(1, min(n, SPLIT_SCRATCH_BYTES // per_pair))
     codes = torch.empty(chunk * per_pair, dtype=torch.uint8, device=centers.device)
     symbol = f"bet_dba_update_split_{_build.symbol_suffix(centers.dtype)}"
@@ -189,7 +215,7 @@ def squared_dtw_cost_batch(centers: torch.Tensor, series: torch.Tensor) -> torch
         raise ValueError(
             f"T={t} exceeds the DTW cost kernel's shared-memory cap "
             f"({DTW_COST_T_CAP[centers.dtype]} in {centers.dtype}; it needs "
-            f"{_split_smem_bytes(t, centers.element_size())} bytes of the {_build.SMEM_BYTES})"
+            f"{_cost_smem_bytes(t, centers.element_size())} bytes of the {_build.SMEM_BYTES})"
         )
     out = torch.empty((n,), dtype=centers.dtype, device=centers.device)
     _build.launch("dtw_cost", symbol, centers.data_ptr(), series.data_ptr(), out.data_ptr(), n, t)

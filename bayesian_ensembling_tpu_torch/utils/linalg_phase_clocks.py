@@ -13,8 +13,10 @@ build.  This script compiles ``csrc/chol.cu``, ``csrc/chol_solve.cu`` and
 source, beside the package's own, in ``build/torch_kernels/``), launches
 each at B = 16 and reads the SM cycle counter that thread 0 of block 0
 recorded at every mark: the load, then per 32-column panel the diagonal
-block, the rows under it and the trailing update (with the solve's hook),
-the backward substitution, the store; for the inverse the diagonal blocks
+block (beside it, in the solve, the update of the rows under the previous
+panel), the rows under it and the trailing update (beside it, in the solve,
+the forward substitution of the panel), the backward substitution (by
+panels, in the solve), the store; for the inverse the diagonal blocks
 and the two products of every doubling level.  ``--threads`` rebuilds the two
 Cholesky kernels with another block size (the inverse needs its 16 warps).
 Each result is checked against torch.linalg before its clocks are printed.

@@ -15,13 +15,14 @@ Phases, in order; any failure exits non-zero:
    the squared-DTW cost (exact, float32 and float64: the subgradient DBA's
    epoch cost, N = 3,248 at T = 165 and 86; the medoid init's pairs,
    N = 45,472 at T = 165; the monthly N = 812 at T = 1980; T = 1), the DBA
-   update (N = 3,248 pairs, T = 165 and 86, exact), the fused
-   Cholesky-solve and the triangular inverse (B = 112, T = 165 and 86 in
-   float32, T = 165 in float64 too, each beside ``solve_triangular``), and
-   one non-positive-definite input that must come back NaN; then the
-   monthly path's kernels: the split DBA update (exact, at the monthly
-   collections' N and T = 1980 / 1032, and against the fused kernel at
-   T = 165), the Cholesky and the triangular inverse at the blocked NLML's
+   update (N = 3,248 pairs, T = 165 and 86, exact; and the subgradient
+   step's N = 112), the fused Cholesky-solve (B = 112 and the library path's
+   B = 16) and the triangular inverse (B = 112, T = 165 and 86 in float32,
+   T = 165 in float64 too, each beside ``solve_triangular``), and one
+   non-positive-definite input that must come back NaN; then the monthly
+   path's kernels: the split DBA update (exact, float32 and float64, at the
+   monthly collections' N and T = 1980 / 1032, and against the fused kernel
+   at T = 165), the Cholesky and the triangular inverse at the blocked NLML's
    leaves (B = 65, T = 128; the Cholesky with a non-positive-definite
    slot), the blocked NLML in float32 against
    torch.linalg in float64 (B = 65, T = 1032), and the route timings that
@@ -133,6 +134,22 @@ LIBRARY_NITS, LIBRARY_REPS = 500, 3  # phase 9: run_scenario's fit depth; timed 
 # Peak rates of one H100 SXM (NVIDIA's data sheet) for the kernels' bounds.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+
+# The previous designs of the fused Cholesky-solve (one barrier per column of
+# the backward substitution, the forward hook in one warp) and of the split
+# DBA update (one barrier per anti-diagonal, a byte per move code), in ms,
+# float32 unless marked, on one H100 80GB HBM3 at 700 W (PERF.md section 6),
+# printed beside this run's times; and the monthly campaign's peak device
+# memory with byte-wide move codes (PERF.md section 5).
+PREVIOUS_MS = {("chol_solve", 112, 165): 0.0810, ("chol_solve", 112, 86): 0.0535,
+               ("chol_solve_f64", 112, 165): 0.1047,
+               ("dba_update_split", 812, 1980): 8.838, ("dba_update_split", 1885, 1032): 7.229}
+PREVIOUS_PEAK_GIB = 6.02
+
+
+def _previous(key):
+    ms = PREVIOUS_MS.get(key)
+    return f" (previous design {ms} ms)" if ms is not None else ""
 
 
 def log(*a):
@@ -308,6 +325,20 @@ def check_kernels(torch, inputs, dev, report):
         ok &= exact
         report["dba_update"].append(dict(t=t, err=err, ms=ms, plain_ms=plain_ms,
                                          work=_dba_work(n, t), library_ms=None))
+        # The subgradient DBA's shape: one realisation of each of the B = 112
+        # models against its centre per launch, 1,189 launches a step.
+        sub_c, sub_s = centers[::R].contiguous(), series[::R].contiguous()
+        got = dtw_cuda.dba_update_batch(sub_c, sub_s)
+        want = dtw_cuda.dba_update_batch_reference(sub_c, sub_s)
+        torch.cuda.synchronize()
+        exact = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        ms = _cuda_ms(torch, lambda: dtw_cuda.dba_update_batch(sub_c, sub_s), 200)
+        plain_ms = _cuda_ms(torch, lambda: dtw_cuda.dba_update_batch_reference(sub_c, sub_s), 2)
+        work = _dba_work(sub_c.shape[0], t)
+        bound_ms, bound_by = _bound(*work)
+        log(f"  dba_update N={sub_c.shape[0]} T={t} (subgradient step): exact={exact} kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.5f} ms ({bound_by})")
+        ok &= exact
 
         # B2 / B3 on Matern Grams of this collection's features plus noise,
         # in float32 and, at the historical shape, in float64 too (the
@@ -335,10 +366,22 @@ def check_kernels(torch, inputs, dev, report):
             log(f"  chol_solve{tag} B={b} T={t}: rel err (L, z, alpha, logdet) = "
                 + ", ".join(f"{r_:.2e}" for r_ in rels)
                 + f" (tol {tol}); vs f64: kernel {vs64[0]:.2e}, plain {vs64[1]:.2e}; "
-                f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+                f"kernel {ms:.4f} ms{_previous(('chol_solve' + suffix, b, t))}, plain {plain_ms:.4f} ms")
             ok &= max(rels) < tol
             report["chol_solve" + suffix].append(dict(t=t, err=err, ms=ms, plain_ms=plain_ms,
                                                       work=_chol_solve_work(b, t, e), library_ms=None))
+            # The library path's shape: one scenario's M = 16 models a launch.
+            k16, y16 = ky[:M].contiguous(), y[:M].contiguous()
+            got16 = lc.chol_solve(k16, y16)
+            want16 = [w_[:M] for w_ in want]
+            torch.cuda.synchronize()
+            rel16 = max(_rel(g, w_) for g, w_ in zip(got16, want16))
+            ms16 = _cuda_ms(torch, lambda: lc.chol_solve(k16, y16), 50)
+            work = _chol_solve_work(M, t, e)
+            bound_ms, bound_by = _bound(*work)
+            log(f"  chol_solve{tag} B={M} T={t} (library path): rel err {rel16:.2e} (tol {tol}); kernel "
+                f"{ms16:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
+            ok &= rel16 < tol
 
             l = want[0].contiguous()  # torch.linalg returns a column-major factor
             got_w = lc.tri_inv(l)
@@ -637,11 +680,25 @@ def check_monthly_kernels(torch, pack, dev, report):
         plain_ms = _cuda_ms(torch, lambda: dtw_cuda.dba_update_batch_reference(centers, series), 1)
         del got, want
         torch.cuda.empty_cache()
+        scratch = dtw_cuda._split_scratch_bytes(t)
         log(f"  dba_update_split N={n} T={t} ({name}): exact={exact} max_abs_err={err:.3e} "
-            f"kernel {ms:.3f} ms, plain {plain_ms:.1f} ms")
+            f"kernel {ms:.3f} ms{_previous(('dba_update_split', n, t))}, plain {plain_ms:.1f} ms; "
+            f"move codes {scratch} bytes a pair ({scratch * n / 2**30:.3f} GiB a launch; a byte a "
+            f"cell took {(2 * t - 1) * t * n / 2**30:.3f} GiB)")
         ok &= exact
         report["dba_update_split"].append(dict(t=t, n=n, err=err, ms=ms, plain_ms=plain_ms,
                                                work=_dba_work(n, t), library_ms=None))
+        # Float64, as the campaign's reference run launches it.
+        c64, s64 = centers.double(), series.double()
+        got = dtw_cuda.dba_update_batch(c64, s64)
+        want = dtw_cuda.dba_update_batch_reference(c64, s64)
+        torch.cuda.synchronize()
+        exact64 = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        ms = _cuda_ms(torch, lambda: dtw_cuda.dba_update_batch(c64, s64), 5)
+        log(f"  dba_update_split N={n} T={t} ({name}) f64: exact={exact64} kernel {ms:.3f} ms")
+        ok &= exact64
+        del c64, s64, got, want
+        torch.cuda.empty_cache()
 
     # The split kernel against the fused one at the annual T, same pairs.
     rng = np.random.default_rng(2)
@@ -740,21 +797,26 @@ def _campaign(torch, bt, pack, obs, dev, dtype):
 
 
 def campaign_stage_split(torch, pack, obs, dev):
-    """Wall time of each stage of one float32 campaign, run stage by stage
-    (the composition of ``run_dedup_campaign`` and ``emulate_marginals``)."""
+    """Wall time and peak device memory of each stage of one float32
+    campaign, run stage by stage (the composition of ``run_dedup_campaign``
+    and ``emulate_marginals``)."""
     from bayesian_ensembling_tpu_torch.ops import gp as gp_ops
     from bayesian_ensembling_tpu_torch.parallel.step import chunked_marginals, multi_scenario_tail
 
-    times = {}
+    times, peaks = {}, {}
+
+    def timed(name, fn):
+        torch.cuda.reset_peak_memory_stats()
+        dt, out = _wall(torch, fn)
+        times[name] = times.get(name, 0.0) + dt
+        peaks[name] = max(peaks.get(name, 0.0), torch.cuda.max_memory_allocated() / 2**30)
+        return out
 
     def staged(key):
         def em(block, mask):
-            dt, (x, y, v) = _wall(torch, lambda: gp_ops.prepare_gp_inputs(block, mask, dba_iterations=10))
-            times[f"{key}_dba"] = times.get(f"{key}_dba", 0.0) + dt
-            dt, (params, _) = _wall(torch, lambda: gp_ops.fit_gp_batch(x, y, v, n_optim_nits=MONTHLY_NITS))
-            times[f"{key}_fit"] = times.get(f"{key}_fit", 0.0) + dt
-            dt, (mu, var) = _wall(torch, lambda: gp_ops.posterior_marginals_batch(params, x, y, v))
-            times[f"{key}_posterior"] = times.get(f"{key}_posterior", 0.0) + dt
+            x, y, v = timed(f"{key}_dba", lambda: gp_ops.prepare_gp_inputs(block, mask, dba_iterations=10))
+            params, _ = timed(f"{key}_fit", lambda: gp_ops.fit_gp_batch(x, y, v, n_optim_nits=MONTHLY_NITS))
+            mu, var = timed(f"{key}_posterior", lambda: gp_ops.posterior_marginals_batch(params, x, y, v))
             return mu, var + v
         return em
 
@@ -765,11 +827,10 @@ def campaign_stage_split(torch, pack, obs, dev):
     s_mu, s_var = staged("ssp")(tensor(pack.usb), tensor(pack.usm))
     uidx = torch.tensor(pack.uidx, device=dev)
     sidx = torch.tensor(pack.sidx, device=dev)
-    dt, _ = _wall(torch, lambda: multi_scenario_tail(
+    timed("tail", lambda: multi_scenario_tail(
         h_mu[uidx], h_var[uidx], s_mu[sidx], s_var[sidx], tensor(obs), tensor(pack.hb),
         tensor(pack.hm), tensor(pack.mmask)))
-    times["tail"] = dt
-    return times
+    return times, peaks
 
 
 def run_monthly(torch, bt, dev, seed, report):
@@ -826,14 +887,16 @@ def run_monthly(torch, bt, dev, seed, report):
         dt, out = _wall(torch, lambda: _campaign(torch, bt, pack, obs, dev, torch.float32))
         walls.append(dt)
         log(f"[monthly] run {rep + 1}: {dt:.3f} s (peak device memory "
-            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB)")
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {PREVIOUS_PEAK_GIB} GiB with "
+            "a byte per move code)")
     if not all(bool(torch.isfinite(a).all()) for a in out):
         print("chip_smoke: a timed monthly run gave non-finite output", file=sys.stderr)
         return None
-    split = campaign_stage_split(torch, pack, obs, dev)
+    split, peaks = campaign_stage_split(torch, pack, obs, dev)
     log(f"[monthly] {MONTHLY_NITS} Adam steps, {pack.n_fits} fits: median "
         f"{statistics.median(walls):.3f} s over {len(walls)} runs (warm-up {warm:.3f} s); stages "
         + ", ".join(f"{k} {v:.3f} s" for k, v in split.items()))
+    log("[monthly] peak device memory by stage: " + ", ".join(f"{k} {v:.2f} GiB" for k, v in peaks.items()))
     return True
 
 

@@ -51,9 +51,13 @@ def test_dba_update_split_matches_pallas_interpret(pallas_interpret, t):
         (1032, torch.float32, False, True),  # monthly SSP: split through "auto"
         (1980, torch.float32, False, True),  # monthly historical
         (1980, torch.float64, False, True),  # the f64 reference run
-        (11621, torch.float32, False, True),  # the split kernel's float32 cap
-        (11622, torch.float32, False, False),
-        (5811, torch.float64, False, False),
+        (11621, torch.float32, False, True),
+        (11622, torch.float32, False, True),  # past the cap of byte-wide codes in three diagonals
+        (5811, torch.float64, False, True),
+        (28134, torch.float32, False, True),  # the split kernel's float32 cap
+        (28135, torch.float32, False, False),
+        (14080, torch.float64, False, True),  # its float64 cap
+        (14081, torch.float64, False, False),
     ],
 )
 def test_dba_kernel_gates(t, dtype, fused, split):
@@ -77,8 +81,8 @@ def test_dba_update_impl_errors():
     mid = torch.zeros((1, 500), dtype=torch.float64)
     with pytest.raises(ValueError, match=r"fused DBA kernel.*needs \d+ bytes"):
         dtw_cuda.dba_update_batch(mid, mid, impl="fused")
-    huge = torch.zeros((1, 6000), dtype=torch.float64)
-    with pytest.raises(ValueError, match=r"split DBA kernel.*needs 240024 bytes"):
+    huge = torch.zeros((1, 14081), dtype=torch.float64)
+    with pytest.raises(ValueError, match=r"split DBA kernel.*needs 232512 bytes"):
         dtw_cuda.dba_update_batch(huge, huge)
     with pytest.raises(TypeError, match="float32 or float64"):
         dtw_cuda.dba_update_batch(small.half(), small.half())

@@ -127,7 +127,9 @@ def test_chol_solve_kernel_non_pd_gives_nan(cuda_device, t, column):
     assert torch.isfinite(l[[0, 2]]).all() and torch.isfinite(z[[0, 2]]).all()
 
 
-@pytest.mark.parametrize("t", [2, 9, 165, 1032])
+# 1032 and 1980: the monthly shapes (17 and 31 bands of 64 rows, one warp);
+# 2049 and 4500: two and three warps a pair, handing rows over in shared memory.
+@pytest.mark.parametrize("t", [2, 9, 165, 1032, 1980, 2049, 4500])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_dba_update_split_kernel_matches_plain(cuda_device, t, dtype):
     gen = torch.Generator().manual_seed(t)
@@ -147,7 +149,7 @@ def test_dba_update_split_kernel_matches_plain(cuda_device, t, dtype):
 
 def test_dba_update_split_chunks_its_scratch(cuda_device, monkeypatch):
     t = 40
-    monkeypatch.setattr(dtw_cuda, "SPLIT_SCRATCH_BYTES", 3 * (2 * t - 1) * t)
+    monkeypatch.setattr(dtw_cuda, "SPLIT_SCRATCH_BYTES", 3 * dtw_cuda._split_scratch_bytes(t))
     gen = torch.Generator().manual_seed(5)
     c = torch.randn((10, t), generator=gen).to(cuda_device)
     s = torch.randn((10, t), generator=gen).to(cuda_device)

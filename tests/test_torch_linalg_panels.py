@@ -80,10 +80,58 @@ def trailing_units(nblk):
         yield ib, u - ib * (ib + 1) // 2
 
 
+def warp_tri_solve(rhs, inv, coef, backward):
+    """``warp_tri_solve`` of csrc/chol_solve.cu: lane c's unknown is
+    ``rhs[c] * inv[c]`` once the steps before it have run, then every lane
+    subtracts ``coef[lane][c]`` times it; 32 steps, down or up the lanes.
+    ``coef`` is zero where the unknown does not enter a lane's row."""
+    x = torch.zeros_like(rhs)
+    rhs = rhs.clone()
+    for c in (range(PANEL - 1, -1, -1) if backward else range(PANEL)):
+        x[:, c] = rhs[:, c] * inv[:, c]
+        rhs -= coef[:, :, c] * x[:, c, None]
+    return x
+
+
+def block_rows(l11, nb, keep):
+    """Lane i's row of the 32 x 32 diagonal block, entries that ``keep(i, c)``
+    refuses set to zero (rows past a ragged block's width are zero too)."""
+    rows = torch.zeros((l11.shape[0], PANEL, PANEL), dtype=l11.dtype)
+    rows[:, :nb, :nb] = l11
+    i, c = torch.meshgrid(torch.arange(PANEL), torch.arange(PANEL), indexing="ij")
+    return torch.where(keep(i, c) & (i < nb) & (c < nb), rows, torch.zeros_like(rows))
+
+
+def backward_panels(l, z):
+    """The backward substitution of csrc/chol_solve.cu, alpha = L^-T z in
+    place: panels from the last up; warp 0 solves L11^T alpha_p = r_p (lane
+    i holding column i of L11); then r[0:k0] -= L[k0:k0+32, 0:k0]^T alpha_p
+    in four quarters of eight rows, summed as the shuffles do,
+    (q0 + q1) + (q2 + q3)."""
+    b, t = z.shape
+    r = z.clone()
+    for k0 in range((t - 1) // PANEL * PANEL, -1, -PANEL):
+        nb = min(PANEL, t - k0)
+        l11 = l[:, k0:k0 + nb, k0:k0 + nb]
+        ucol = block_rows(l11.mT, nb, lambda i, c: c > i)  # lane i: L[c][i], c > i
+        rhs = torch.zeros((b, PANEL), dtype=z.dtype)
+        rhs[:, :nb] = r[:, k0:k0 + nb]
+        inv = torch.ones((b, PANEL), dtype=z.dtype)
+        inv[:, :nb] = 1.0 / torch.diagonal(l11, dim1=-2, dim2=-1)
+        x = warp_tri_solve(rhs, inv, ucol, backward=True)
+        r[:, k0:k0 + nb] = x[:, :nb]
+        if k0 == 0:
+            break
+        part = [torch.einsum("brj,br->bj", l[:, k0 + lo:k0 + min(lo + 8, nb), :k0], x[:, lo:min(lo + 8, nb)])
+                for lo in range(0, PANEL, 8)]
+        r[:, :k0] -= (part[0] + part[1]) + (part[2] + part[3])
+    return r
+
+
 def panel_chol(k, y=None):
-    """``chol_factorise`` panel by panel; with ``y`` also the per-panel hook
-    and the backward substitution of the fused Cholesky-solve.  The entries
-    above the diagonal start as NaN: the schedule must never read them."""
+    """``chol_factorise`` panel by panel; with ``y`` also the hooks and the
+    backward substitution of the fused Cholesky-solve.  The entries above
+    the diagonal start as NaN: the schedule must never read them."""
     b, t, _ = k.shape
     lower = torch.tril(torch.ones((t, t), dtype=torch.bool))
     a = torch.where(lower, k, torch.full_like(k, NAN))
@@ -91,6 +139,9 @@ def panel_chol(k, y=None):
         res, z, logdet = y.clone(), torch.zeros_like(y), torch.zeros(b, dtype=k.dtype)
     for k0 in range(0, t, PANEL):
         nb, below = min(PANEL, t - k0), k0 + PANEL
+        if y is not None and k0 > 0:  # on_diag, beside warp 0: the previous panel's rows below
+            kp = k0 - PANEL
+            res[:, k0:] -= torch.einsum("bim,bm->bi", a[:, k0:, kp:k0], z[:, kp:k0])
         l11, inv_diag = chol_diag_block(a[:, k0:k0 + nb, k0:k0 + nb])
         a[:, k0:k0 + nb, k0:k0 + nb] = torch.where(lower[:nb, :nb], l11, a[:, k0:k0 + nb, k0:k0 + nb])
         if below < t:  # two threads per row: x L11^T = row, the row in registers
@@ -100,16 +151,12 @@ def panel_chol(k, y=None):
                 v[:, :, m] = x
                 v[:, :, m + 1:] -= x[:, :, None] * l11[:, None, m + 1:, m]
             a[:, below:, k0:below] = v
-        if y is not None:  # the hook, in the last warp
+        if y is not None:  # on_panel, in the last warp: z_p, lane i holding row i of L11
             r = torch.zeros((b, PANEL), dtype=k.dtype)
             r[:, :nb] = res[:, k0:k0 + nb]
-            for m in range(nb):
-                zm = r[:, m] * inv_diag[:, m]
-                z[:, k0 + m] = zm
-                r[:, m + 1:nb] -= l11[:, m + 1:, m] * zm[:, None]
+            lrow = block_rows(l11, nb, lambda i, c: c < i)
+            z[:, k0:k0 + nb] = warp_tri_solve(r, inv_diag, lrow, backward=False)[:, :nb]
             logdet -= 2.0 * torch.log(inv_diag[:, :nb]).sum(-1)
-            if below < t:
-                res[:, below:] -= torch.einsum("bim,bm->bi", a[:, below:, k0:below], z[:, k0:below])
         nblk = (t - below + PANEL - 1) // PANEL if t > below else 0
         for ib, jb in trailing_units(nblk):
             i0, j0 = below + ib * PANEL, below + jb * PANEL
@@ -120,11 +167,7 @@ def panel_chol(k, y=None):
     l = torch.tril(a)
     if y is None:
         return l
-    res, alpha = z.clone(), torch.zeros_like(y)  # the residual's vector, reused
-    for i in range(t - 1, -1, -1):
-        alpha[:, i] = res[:, i] / l[:, i, i]
-        res[:, :i] -= l[:, i, :i] * alpha[:, i, None]
-    return l, z, alpha, logdet
+    return l, z, backward_panels(l, z), logdet
 
 
 # ----------------------------------------- the triangular inverse's schedule
@@ -296,3 +339,60 @@ def test_shared_memory_mirror_keeps_the_caps(dtype, cap, chol_cap, tri_inv_cap):
     assert tlc._kernel_smem_bytes(cap, e) <= _build.SMEM_BYTES < tlc._kernel_smem_bytes(cap + 1, e)
     assert _build.largest_t(lambda t: e * (t * tlc._smem_ld(t, e) + 96)) == chol_cap
     assert _build.largest_t(lambda t: e * t * tlc._smem_ld(t, e)) == tri_inv_cap
+
+
+# ------------------------- the Cholesky-solve's backward panels and spread hook
+SOLVE_SIZES = [1, 31, 32, 33, 86, 165, 239]
+CHOL_WARPS = 8  # csrc/chol_solve.cu: kThreads / 32
+
+
+@pytest.mark.parametrize("t", SOLVE_SIZES)
+def test_back_substitution_by_panels_matches_jax_and_plain(t):
+    """alpha by 32-column panels from the last up (warp 0's shuffle chain,
+    then the four row quarters' update), z with the rows under each panel
+    updated beside the next diagonal block: against the JAX fused
+    Cholesky-solve and the plain version, up to the float32 cap."""
+    k, y = inputs(t, b=2)
+    l, z, alpha, logdet = panel_chol(torch.from_numpy(k), torch.from_numpy(y))
+    _, jz, jalpha, jlogdet = jlp.cholesky_solve_fused(jnp.asarray(k.transpose(1, 2, 0)), jnp.asarray(y.T))
+    want = tlc.chol_solve_reference(torch.from_numpy(k), torch.from_numpy(y))
+    for got, wj, wp in ((z, np.asarray(jz).T, want[1]), (alpha, np.asarray(jalpha).T, want[2]),
+                        (logdet, np.asarray(jlogdet), want[3])):
+        close(got.numpy(), wj)
+        close(got.numpy(), wp.numpy())
+    # The backward pass alone, on the plain factor: L^T alpha = z.
+    close(backward_panels(want[0], want[1]).numpy(), want[2].numpy())
+
+
+@pytest.mark.parametrize("t,column", [(33, 32), (165, 163), (239, 224), (239, 238), (239, 3)])
+def test_back_substitution_by_panels_nan_rule(t, column):
+    """A non-positive pivot in a ragged last panel (T = 33, 165, 239) or the
+    first: z is NaN from that column on, alpha and logdet NaN, in that matrix
+    only; the others agree with the plain version."""
+    k, y = inputs(t)
+    k[1, column, column] = -1.0
+    l, z, alpha, logdet = panel_chol(torch.from_numpy(k), torch.from_numpy(y))
+    assert torch.isnan(z[1, column:]).all() and torch.isfinite(z[1, :column]).all()
+    assert torch.isnan(alpha[1]).all() and torch.isnan(logdet[1])
+    want = tlc.chol_solve_reference(torch.from_numpy(k), torch.from_numpy(y))
+    for g, w_ in zip((l, z, alpha, logdet), want):
+        close(g[[0, 2]].numpy(), w_[[0, 2]].numpy())
+
+
+@pytest.mark.parametrize("t", SOLVE_SIZES)
+def test_spread_hook_and_backward_update_cover_their_work_once(t):
+    """The index algebra of the two spread GEMVs: beside panel k0's diagonal
+    block, warps 1..7 take the rows from k0 on 32 at a time, each row once;
+    in the backward pass, warp w's lane octets take 16-byte column groups
+    g0 + (lane % 8) for g0 = 8 w, 8 w + 64, ..., each group of the columns
+    left of the panel once, in float32 (4 a group) and float64 (2)."""
+    for k0 in range(PANEL, t, PANEL):
+        rows = [i0 + lane for warp in range(1, CHOL_WARPS)
+                for i0 in range(k0 + (warp - 1) * 32, t, (CHOL_WARPS - 1) * 32)
+                for lane in range(32) if i0 + lane < t]
+        assert sorted(rows) == list(range(k0, t))
+        for vec in (4, 2):
+            groups = [g0 + lane % 8 for warp in range(CHOL_WARPS)
+                      for g0 in range(warp * 8, k0 // vec, CHOL_WARPS * 8)
+                      for lane in range(8)]
+            assert sorted(groups) == list(range(k0 // vec)) and k0 // vec % 8 == 0
