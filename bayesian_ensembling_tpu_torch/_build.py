@@ -40,8 +40,8 @@ SMEM_BYTES = 232_448
 # C entry points: name -> (number of pointer arguments, number of int arguments).
 # Every entry point ends with the stream pointer.
 _SIGNATURES = {
-    "bet_dba_update_f32": (4, 2),
-    "bet_dba_update_f64": (4, 2),
+    "bet_dba_update_f32": (4, 4),
+    "bet_dba_update_f64": (4, 4),
     "bet_chol_solve_f32": (6, 2),
     "bet_chol_solve_f64": (6, 2),
     "bet_tri_inv_f32": (2, 2),
@@ -50,8 +50,8 @@ _SIGNATURES = {
     "bet_chol_f64": (2, 2),
     "bet_dba_update_split_f32": (5, 2),
     "bet_dba_update_split_f64": (5, 2),
-    "bet_dtw_cost_f32": (3, 2),
-    "bet_dtw_cost_f64": (3, 2),
+    "bet_dtw_cost_f32": (3, 4),
+    "bet_dtw_cost_f64": (3, 4),
     "bet_solve_vec_f32": (5, 2),
     "bet_solve_vec_f64": (5, 2),
 }

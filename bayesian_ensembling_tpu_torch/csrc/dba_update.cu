@@ -5,140 +5,208 @@
 //   bayesian_ensembling_tpu/ops/dtw_pallas.py::_make_dba_update_kernel
 //   (public entry dba_update_batch(impl="fused")).
 //
-// What bounds it on an H100: the DP is a chain of 2T-1 dependent
-// anti-diagonal steps per pair, each only O(T) arithmetic, so the time goes
-// to the per-step barrier and shared-memory latency, not to FLOPs or device
-// memory (each pair reads 2T values and writes 2T).  The move codes are
-// the only large state: (2T-1) x T bytes in the TPU kernel's diagonal
-// layout.
+// What bounds it on an H100: the DP is 5 T^2 operations a pair in a chain of
+// dependent cells, then a walk of up to 2T-1 dependent moves back from the
+// corner (each pair reads 2T values and writes 2T).  It runs in two
+// regimes: the subgradient DBA launches it 1,189 times a step at N = 112
+// pairs, fewer than the SMs, where one pair's chain is the time; the classic
+// DBA at N = 3,248, where the instructions a cell are.  A wavefront of one
+// thread per row pays a block barrier per anti-diagonal; this design has
+// none:
 //
-// Design:
-//  * One thread block per pair, one thread per row i of the cost matrix.
-//    Step k of the wavefront computes cell (i, k-i) in every thread; the
-//    last three cost diagonals live in shared memory (triple-buffered, so
-//    one __syncthreads per step suffices).
-//  * Move codes are stored per cell, moves[i*T + j], one byte each: T^2
-//    bytes (27 KB at T=165) stay in shared memory, with no device-memory
-//    round trip.  T is capped by shared memory (about T=470 in f32); the
-//    launcher refuses larger T.
-//  * The path is unique, so the TPU kernel's backward on-path sweep equals a
-//    traceback from the corner (T-1, T-1).  One thread walks it and sums the
-//    aligned values per centre slot in the same order as the plain version
-//    (descending anti-diagonal), so sums and counts match it exactly.
-//  * Tie-break diag, then left, then top; invalid cells hold the same 3e38
-//    sentinel as the TPU kernel.  Local costs use explicitly rounded
-//    multiply and add, so valid cells equal the plain version bit for bit.
-#include "common.cuh"
+//  * dtw_band.cuh's band wavefront with move codes: lane g of a pair owns H
+//    rows in registers, the lanes run a skewed pipeline handing the row
+//    above a band on by __shfl_up_sync, and a pair of more than 32 bands
+//    takes several warps that hand rows on through a ring in shared memory.
+//    H is 1, 2, 4, 8 or 16 (it divides 16, so a band column is one field of
+//    one 32-bit code word).  A chain of a pair is about (T + bands - 1)
+//    steps of H cells, so a small H shortens it and costs lanes.
+//  * Move codes in shared memory, 2 bits a cell: band g's codes are one
+//    stream of words, the code of row g*H + r at column j in slot H*j + r.
+//    T = 165 takes 7.0 KB a pair, so the float32 cap is 944 and at
+//    N = 3,248 four pairs share a block.
+//  * One block barrier, after the wavefront.  Then one thread a pair walks
+//    back from the corner, a move the load of one code word, a shift, a
+//    compare, a select and a subtract.  The walk only records, for each
+//    row, the first and last column of its cells; then the pair's first
+//    warp sums the rows, one a lane, in the plain version's order
+//    (descending column), so sums and counts equal it bit for bit and no
+//    add or load of the series waits in the walk's chain.  A move out of
+//    the matrix (only after a NaN or past the float range) ends the path,
+//    as in the plain version's sweep; rows it never reached sum to 0.
+//
+// ops/dtw_cuda.py picks (H, pairs a block) from T and N by _fused_layout
+// (the rule is written there) and mirrors the shared memory; the launcher
+// refuses a layout it was not built for or that does not fit.
+#include "dtw_band.cuh"
 
 namespace {
 
-constexpr double kBig = 3.0e38;
+constexpr int kMaxThreads = 512;
+constexpr unsigned kUnreached = 0xffffffffu;  // the record of a row the path never reached
 
+// Words of one band's code stream: T*H slots of 2 bits, rounded up to an even
+// count so that the lanes storing at one step hit distinct banks.
+__host__ __device__ inline int stream_words(int t, int h) {
+  const int w = (t * h + 15) / 16;
+  return (w + 1) / 2 * 2;
+}
+
+// Shared memory of one pair, a multiple of 16 bytes: the code streams, the
+// series, the rings between its warps and the path's row records.
 template <typename T>
-__global__ void dba_update_kernel(const T* __restrict__ centers, const T* __restrict__ series,
-                                  T* __restrict__ sums, T* __restrict__ counts, int t) {
+__host__ __device__ inline size_t dba_pair_bytes(int t, int h) {
+  const int bands = (t + h - 1) / h;
+  const int warps = (bands + 31) / 32;
+  const size_t raw = sizeof(unsigned) * (static_cast<size_t>(bands) * stream_words(t, h) + t) +
+                     sizeof(T) * static_cast<size_t>(t) + bet::band_ring_bytes<T>(warps);
+  return (raw + 15) / 16 * 16;
+}
+
+template <typename T, int H>
+__global__ void __launch_bounds__(kMaxThreads)
+    dba_update_kernel(const T* __restrict__ centers, const T* __restrict__ series,
+                      T* __restrict__ sums, T* __restrict__ counts, int n, int t, int ppb) {
   using N = bet::Num<T>;
   extern __shared__ __align__(16) unsigned char smem[];
-  T* s = reinterpret_cast<T*>(smem);  // the series, t values
-  // Three cost diagonals (k mod 3), each t+1 slots: slot i+1 holds row i,
-  // slot 0 is the sentinel for row -1.
-  T* diag = s + t;
-  unsigned char* moves = reinterpret_cast<unsigned char*>(diag + 3 * (t + 1));
-
-  const T big = static_cast<T>(kBig);
-  const size_t row0 = static_cast<size_t>(blockIdx.x) * t;
-  const int i = threadIdx.x;
-
-  for (int q = threadIdx.x; q < t; q += blockDim.x) s[q] = series[row0 + q];
-  for (int q = threadIdx.x; q < 3 * (t + 1); q += blockDim.x) diag[q] = big;
-  const T ci = i < t ? centers[row0 + i] : T(0);
-  __syncthreads();
-  if (i == 0) {
-    const T d = N::sub_rn(ci, s[0]);
-    diag[1] = N::mul_rn(d, d);  // diagonal 0 = cell (0, 0), buffer 0
-  }
-  __syncthreads();
-
-  for (int k = 1; k < 2 * t - 1; ++k) {
-    T* cur = diag + (k % 3) * (t + 1);
-    const T* p1 = diag + ((k + 2) % 3) * (t + 1);  // diagonal k-1
-    const T* p2 = diag + ((k + 1) % 3) * (t + 1);  // diagonal k-2
-    if (i < t) {
-      const int j = k - i;
-      T val = big;
-      if (j >= 0 && j < t) {
-        const T dg = p2[i];     // (i-1, j-1)
-        const T lf = p1[i + 1]; // (i,   j-1)
-        const T tp = p1[i];     // (i-1, j)
-        T best;
-        unsigned char mv;
-        if (dg <= lf && dg <= tp) {
-          best = dg;
-          mv = 0;
-        } else if (lf <= tp) {
-          best = lf;
-          mv = 1;
-        } else {
-          best = tp;
-          mv = 2;
-        }
-        const T d = N::sub_rn(ci, s[j]);
-        val = N::add_rn(best, N::mul_rn(d, d));
-        moves[i * t + j] = mv;
-      }
-      cur[i + 1] = val;
+  BET_PHASE_CLOCK_RESET();
+  BET_PHASE_CLOCK();
+  const int p = (t + H - 1) / H;
+  const int nwp = (p + 31) / 32;
+  const int words = stream_words(t, H);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wip = warp % nwp;
+  const int slot = warp / nwp;
+  const int pair = blockIdx.x * ppb + slot;
+  const bool active = pair < n;
+  unsigned char* base = smem + slot * dba_pair_bytes<T>(t, H);
+  unsigned* codes = reinterpret_cast<unsigned*>(base);
+  T* s = reinterpret_cast<T*>(codes + static_cast<size_t>(p) * words);
+  const bet::BandRing<T> ring = bet::band_ring<T>(reinterpret_cast<unsigned char*>(s + t), nwp);
+  const size_t row0 = static_cast<size_t>(active ? pair : 0) * t;
+  if (active) {
+    for (int q = wip * 32 + lane; q < t; q += 32 * nwp) s[q] = series[row0 + q];
+    for (int q = wip * 32 + lane; q < nwp - 1; q += 32 * nwp) {
+      ring.made[q] = 0;
+      ring.taken[q] = 0;
     }
-    __syncthreads();
   }
+  const int g = wip * 32 + lane;
+  T cen[H];
+  bet::load_band_centre<T, H>(cen, centers + row0, g, active ? t : 0);
+  __syncthreads();
+  BET_PHASE_CLOCK();  // the load
 
-  if (threadIdx.x == 0) {
-    // Traceback from the corner.  Rows are visited in descending order and
-    // each row's cells in descending column order, so every slot is written
-    // once, after its last contribution.
+  unsigned* rows = reinterpret_cast<unsigned*>(reinterpret_cast<unsigned char*>(s + t) +
+                                               bet::band_ring_bytes<T>(nwp));
+  if (active) {
+    T cost[H];
+#pragma unroll
+    for (int r = 0; r < H; ++r) cost[r] = static_cast<T>(bet::kDtwBig);
+    // A lane past the last band stores its junk codes in the row records,
+    // which the walk writes only after the barrier below.
+    unsigned* stream = g < p ? codes + static_cast<size_t>(g) * words : rows;
+    if (nwp == 1)
+      bet::band_wavefront<T, H, true, false, false>(cost, cen, s, t, p, wip, nwp, lane, ring, stream);
+    else
+      bet::band_wavefront<T, H, true, false, true>(cost, cen, s, t, p, wip, nwp, lane, ring, stream);
+  }
+  __syncthreads();  // every band's codes are in shared memory
+  BET_PHASE_CLOCK();  // the wavefront
+
+  if (active && wip == 0) {
+    if (lane == 0) {
+      // Walk back from the corner over the pair's streams as one array:
+      // cell (g*H + r, j) is slot gs = g*W + H*j + r, W = 16 * words the
+      // slots of a band, and cell (0, 0) is slot 0.  A move lowers gs by H
+      // for left, by 1 for up within a band and by W - H + 1 for up into the
+      // band above; the last is known from gs before the code is, so the
+      // chain of a move is the load of its word, a shift, a compare, a
+      // select and a subtract.  (Loading the words of the three cells a
+      // move may reach before its code is read made a move slower on the
+      // H100, 116 cycles against 96.)  Each row the path leaves gets its record,
+      // (first column << 16) | last column: the walk enters a row at its
+      // largest column and leaves it at its smallest.
+      const int w = 16 * words;
+      int ii = t - 1, jj = t - 1, enter = t - 1;
+      int gs = (ii / H) * w + H * jj + ii % H;
+      unsigned word = codes[gs >> 4];
+      while (gs != 0) {
+        const int up_slots = (gs & (H - 1)) != 0 ? 1 : w - H + 1;
+        const int code = __funnelshift_r(word, word, 2 * gs) & 3;
+        const bool up = code != 1;
+        const bool left = code != 2;
+        // A move out of the matrix (only after a NaN or past the float
+        // range) ends the path there, as the plain version's sweep does.
+        if ((up && ii == 0) || (left && jj == 0)) break;
+        gs -= (left ? H : 0) + (up ? up_slots : 0);
+        word = codes[gs >> 4];
+        if (up) {
+          rows[ii] = static_cast<unsigned>(enter) << 16 | static_cast<unsigned>(jj);
+          enter = jj - left;
+        }
+        ii -= up;
+        jj -= left;
+      }
+      rows[ii] = static_cast<unsigned>(enter) << 16 | static_cast<unsigned>(jj);
+      for (int i = 0; i < ii; ++i) rows[i] = kUnreached;
+    }
+    __syncwarp();
+    BET_PHASE_CLOCK();  // the walk
+    // Each row's sum in the plain version's order, descending columns, one
+    // row a lane at a time; a row the path never reached sums to 0.
     T* out_s = sums + row0;
     T* out_c = counts + row0;
-    int ii = t - 1, jj = t - 1;
-    T acc = s[jj];
-    T cnt = T(1);
-    while (ii > 0 || jj > 0) {
-      int mv = moves[ii * t + jj];
-      if (ii == 0) mv = 1;       // the first row can only move left
-      else if (jj == 0) mv = 2;  // the first column can only move up
-      const int ni = ii - (mv != 1);
-      jj -= (mv != 2);
-      if (ni != ii) {
-        out_s[ii] = acc;
-        out_c[ii] = cnt;
-        acc = T(0);
-        cnt = T(0);
-        ii = ni;
+    for (int i = lane; i < t; i += 32) {
+      const unsigned rec = rows[i];
+      T acc = T(0), cnt = T(0);
+      if (rec != kUnreached) {
+        const int hi = static_cast<int>(rec >> 16), lo = static_cast<int>(rec & 0xffffu);
+        acc = s[hi];
+        for (int jc = hi - 1; jc >= lo; --jc) acc = N::add_rn(acc, s[jc]);
+        cnt = static_cast<T>(hi - lo + 1);
       }
-      acc = N::add_rn(acc, s[jj]);
-      cnt += T(1);
+      out_s[i] = acc;
+      out_c[i] = cnt;
     }
-    out_s[0] = acc;
-    out_c[0] = cnt;
   }
+  BET_PHASE_CLOCK();  // the sums and their stores, as thread 0 sees them
 }
 
-template <typename T>
-size_t dba_smem_bytes(int t) {
-  return sizeof(T) * (t + 3 * (t + 1)) + static_cast<size_t>(t) * t;
-}
-
-template <typename T>
-int launch_dba_update(const void* centers, const void* series, void* sums, void* counts, int n,
-                      int t, void* stream) {
-  if (n <= 0 || t <= 0) return cudaSuccess;
-  if (t > 1024) return cudaErrorInvalidValue;  // one thread per row
-  const size_t smem = dba_smem_bytes<T>(t);
-  cudaError_t err = bet::set_dynamic_smem(dba_update_kernel<T>, smem);
+template <typename T, int H>
+cudaError_t launch_h(const T* centers, const T* series, T* sums, T* counts, int n, int t, int ppb,
+                     cudaStream_t stream) {
+  static bet::SmemGrant grant;
+  const size_t smem = dba_pair_bytes<T>(t, H) * ppb;
+  cudaError_t err = bet::grant_dynamic_smem(dba_update_kernel<T, H>, smem, 0, grant);
   if (err != cudaSuccess) return err;
-  const int threads = (t + 31) / 32 * 32;
-  dba_update_kernel<T><<<n, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(centers), static_cast<const T*>(series), static_cast<T*>(sums),
-      static_cast<T*>(counts), t);
+  const int warps = ((t + H - 1) / H + 31) / 32;
+  const int blocks = (n + ppb - 1) / ppb;
+  dba_update_kernel<T, H><<<blocks, 32 * warps * ppb, smem, stream>>>(centers, series, sums,
+                                                                     counts, n, t, ppb);
   return cudaGetLastError();
+}
+
+template <typename T>
+int launch_dba_update(const void* centers_, const void* series_, void* sums_, void* counts_, int n,
+                      int t, int h, int ppb, void* stream_) {
+  if (n <= 0 || t <= 0) return cudaSuccess;
+  if (h <= 0 || ppb <= 0) return cudaErrorInvalidValue;
+  const int warps = ((t + h - 1) / h + 31) / 32;
+  if (32 * warps * ppb > kMaxThreads) return cudaErrorInvalidValue;
+  const T* centers = static_cast<const T*>(centers_);
+  const T* series = static_cast<const T*>(series_);
+  T* sums = static_cast<T*>(sums_);
+  T* counts = static_cast<T*>(counts_);
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_);
+  switch (h) {
+    case 1: return launch_h<T, 1>(centers, series, sums, counts, n, t, ppb, stream);
+    case 2: return launch_h<T, 2>(centers, series, sums, counts, n, t, ppb, stream);
+    case 4: return launch_h<T, 4>(centers, series, sums, counts, n, t, ppb, stream);
+    case 8: return launch_h<T, 8>(centers, series, sums, counts, n, t, ppb, stream);
+    case 16: return launch_h<T, 16>(centers, series, sums, counts, n, t, ppb, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -146,13 +214,13 @@ int launch_dba_update(const void* centers, const void* series, void* sums, void*
 extern "C" {
 
 int bet_dba_update_f32(const void* centers, const void* series, void* sums, void* counts, int n,
-                       int t, void* stream) {
-  return launch_dba_update<float>(centers, series, sums, counts, n, t, stream);
+                       int t, int h, int ppb, void* stream) {
+  return launch_dba_update<float>(centers, series, sums, counts, n, t, h, ppb, stream);
 }
 
 int bet_dba_update_f64(const void* centers, const void* series, void* sums, void* counts, int n,
-                       int t, void* stream) {
-  return launch_dba_update<double>(centers, series, sums, counts, n, t, stream);
+                       int t, int h, int ppb, void* stream) {
+  return launch_dba_update<double>(centers, series, sums, counts, n, t, h, ppb, stream);
 }
 
 const char* bet_error_string(int code) {

@@ -1,10 +1,11 @@
 """Where the cycles of the Cholesky, Cholesky-solve and triangular-inverse
-kernels go, phase by phase, on the card.
+kernels, and of the DBA-update and squared-DTW cost kernels, go, phase by
+phase, on the card.
 
 Run from the repository root on a machine with an NVIDIA GPU and nvcc::
 
     python3 -m bayesian_ensembling_tpu_torch.utils.linalg_phase_clocks [--sizes 165 128 86]
-        [--threads 256 512]
+        [--threads 256 512] [--only linalg|dtw]
 
 For a card whose profilers (ncu, nsys) are out of reach, the kernels carry
 ``BET_PHASE_CLOCK()`` marks that compile to nothing in the library's own
@@ -20,6 +21,17 @@ panels, in the solve), the store; for the inverse the diagonal blocks
 and the two products of every doubling level.  ``--threads`` rebuilds the two
 Cholesky kernels with another block size (the inverse needs its 16 warps).
 Each result is checked against torch.linalg before its clocks are printed.
+
+``csrc/dba_update.cu`` and ``csrc/dtw_cost.cu`` are built the same way and
+launched at N = 112 (the subgradient DBA's launch: fewer pairs than SMs, a
+pair's chain alone) and N = 3,248 (the classic DBA and the epoch cost: every
+SM full) for T in ``--sizes``, at every band height H the fused kernel is
+built for and at the cost kernel's own.  The marks of block 0's first pair:
+the load, the wavefront (as warp 0 of the pair sees it), then the walk back
+from the corner and the row sums with their stores (the fused kernel) or the
+store (the cost kernel); beside them the cycles of a wavefront step and of a
+move of the walk.  Each result is checked bit for bit against the plain
+version.
 """
 
 from __future__ import annotations
@@ -34,7 +46,9 @@ import torch
 
 from bayesian_ensembling_tpu_torch import _build
 
-KERNELS = {"chol": 2, "chol_solve": 6, "tri_inv": 2}  # source stem -> pointer arguments
+# source stem -> (pointer arguments, int arguments)
+KERNELS = {"chol": (2, 2), "chol_solve": (6, 2), "tri_inv": (2, 2), "dba_update": (4, 4),
+           "dtw_cost": (3, 4)}
 
 
 def build(name, threads):
@@ -51,7 +65,8 @@ def build(name, threads):
     lib = ctypes.CDLL(str(so))
     for suffix in ("f32", "f64"):
         fn = getattr(lib, f"bet_{name}_{suffix}")
-        fn.argtypes = [ctypes.c_void_p] * KERNELS[name] + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+        n_ptr, n_int = KERNELS[name]
+        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     lib.bet_phase_clocks.argtypes = [ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_int)]
     lib.bet_phase_clocks.restype = ctypes.c_int
@@ -88,18 +103,70 @@ def rel(got, want):
     return ((got - want).abs().max() / want.abs().max().clamp(min=1.0)).item()
 
 
+def dtw_clocks(sizes):
+    """Phases of the DBA-update and cost kernels of one pair (block 0)."""
+    from bayesian_ensembling_tpu_torch.ops import dtw_cuda
+
+    dba, notes = build("dba_update", 0)
+    print("dba_update:", "; ".join(notes))
+    cost, notes = build("dtw_cost", 0)
+    print("dtw_cost:", "; ".join(notes))
+    ok = True
+    for dtype, sfx in ((torch.float32, "f32"), (torch.float64, "f64")):
+        e = dtype.itemsize
+        for t in sizes:
+            for n in (112, 3248):
+                gen = torch.Generator().manual_seed(t)
+                c = torch.randn((n, t), generator=gen, dtype=dtype).cuda()
+                s = torch.randn((n, t), generator=gen, dtype=dtype).cuda()
+                want_s, want_c = dtw_cuda.dba_update_batch_reference(c, s)
+                rule = dtw_cuda._fused_layout(t, e)
+                for h in dtw_cuda._FUSED_HEIGHTS:
+                    ppb = rule[1] if h == rule[0] else 1
+                    if 32 * dtw_cuda._warps(t, h) * ppb > dtw_cuda._MAX_THREADS:
+                        continue
+                    sums, counts = torch.empty_like(c), torch.empty_like(c)
+                    d = launch(dba, f"bet_dba_update_{sfx}", c.data_ptr(), s.data_ptr(), sums.data_ptr(),
+                               counts.data_ptr(), n, t, h, ppb)
+                    exact = torch.equal(sums, want_s) and torch.equal(counts, want_c)
+                    ok &= exact
+                    steps = t + min(32, dtw_cuda._bands(t, h)) - 1
+                    moves = int(counts[0].sum().item()) - 1
+                    mark = "*" if (h, ppb) == rule else " "
+                    print(f"{mark}{sfx} N={n} T={t} dba_update H={h} pairs/block={ppb}: {sum(d)} cycles; "
+                          f"load {d[0]}, wavefront {d[1]} ({d[1] / steps:.0f} a step of warp 0), "
+                          f"walk {d[2]} ({moves} moves, {d[2] / max(moves, 1):.0f} a move), "
+                          f"row sums and stores {d[3]}; exact {exact}")
+                h, ppb = dtw_cuda._cost_layout(t, e)
+                out = torch.empty(n, dtype=dtype, device="cuda")
+                d = launch(cost, f"bet_dtw_cost_{sfx}", c.data_ptr(), s.data_ptr(), out.data_ptr(),
+                           n, t, h, ppb)
+                exact = torch.equal(out, dtw_cuda.squared_dtw_cost_batch_reference(c, s))
+                ok &= exact
+                steps = t + min(32, dtw_cuda._bands(t, h)) - 1
+                print(f"*{sfx} N={n} T={t} dtw_cost H={h} pairs/block={ppb}: {sum(d)} cycles; load {d[0]}, "
+                      f"wavefront {d[1]} ({d[1] / steps:.0f} a step), store {d[2]}; exact {exact}")
+    return ok
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--sizes", type=int, nargs="+", default=[165, 128, 86], help="T of the matrices")
     parser.add_argument("--threads", type=int, nargs="+", default=[256],
                         help="block sizes of the two Cholesky kernels")
+    parser.add_argument("--only", choices=["linalg", "dtw"], help="one family of kernels")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("needs an NVIDIA GPU", file=sys.stderr)
         return 1
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
-    b, ok = 16, True
+    ok = True
+    if args.only != "linalg":
+        ok &= dtw_clocks(args.sizes)
+    if args.only == "dtw":
+        return 0 if ok else 1
+    b = 16
     inv, notes = build("tri_inv", args.threads[0])
     print("tri_inv:", "; ".join(notes))
     for threads in args.threads:

@@ -136,14 +136,21 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 
 # The previous designs of the fused Cholesky-solve (one barrier per column of
-# the backward substitution, the forward hook in one warp) and of the split
-# DBA update (one barrier per anti-diagonal, a byte per move code), in ms,
+# the backward substitution, the forward hook in one warp), of the split DBA
+# update (one barrier per anti-diagonal, a byte per move code), and of the
+# fused DBA update and the squared-DTW cost (the same), in ms,
 # float32 unless marked, on one H100 80GB HBM3 at 700 W (PERF.md section 6),
 # printed beside this run's times; and the monthly campaign's peak device
 # memory with byte-wide move codes (PERF.md section 5).
 PREVIOUS_MS = {("chol_solve", 112, 165): 0.0810, ("chol_solve", 112, 86): 0.0535,
                ("chol_solve_f64", 112, 165): 0.1047,
-               ("dba_update_split", 812, 1980): 8.838, ("dba_update_split", 1885, 1032): 7.229}
+               ("dba_update_split", 812, 1980): 8.838, ("dba_update_split", 1885, 1032): 7.229,
+               # One thread a row and a block barrier an anti-diagonal, byte-wide move
+               # codes and a one-thread traceback (the DBA update).
+               ("dba_update", 112, 165): 0.0548, ("dba_update", 112, 86): 0.0385,
+               ("dba_update", 3248, 165): 0.3447,
+               ("dtw_cost", 3248, 165): 0.378, ("dtw_cost", 45472, 165): 4.997,
+               ("dtw_cost", 812, 1980): 5.681}
 PREVIOUS_PEAK_GIB = 6.02
 
 
@@ -296,6 +303,29 @@ def _matern_spd(torch, x, noise, dev):
     return (k + torch.diag_embed(noise)).contiguous()
 
 
+def _check_dba(torch, dtw_cuda, centers, series, reps, impl="fused"):
+    """One DBA-update kernel against its plain version, bit for bit, and
+    timed; returns the report row."""
+    n, t = series.shape
+    name = "dba_update" if impl == "fused" else "dba_update_split"
+    got = dtw_cuda.dba_update_batch(centers, series, impl=impl)
+    want = dtw_cuda.dba_update_batch_reference(centers, series)
+    torch.cuda.synchronize()
+    exact = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    err = max(_abs(got[0], want[0]), _abs(got[1], want[1]))
+    del got, want
+    ms = _cuda_ms(torch, lambda: dtw_cuda.dba_update_batch(centers, series, impl=impl), reps)
+    plain_ms = _cuda_ms(torch, lambda: dtw_cuda.dba_update_batch_reference(centers, series), 1)
+    work = _dba_work(n, t, centers.element_size())
+    bound_ms, bound_by = _bound(*work)
+    f64 = centers.dtype == torch.float64
+    log(f"  {name} N={n} T={t}{' f64' if f64 else ''}: exact={exact} max_abs_err={err:.3e} kernel "
+        f"{ms:.4f} ms{'' if f64 else _previous((name, n, t))}, plain {plain_ms:.3f} ms, bound "
+        f"{bound_ms:.5f} ms ({bound_by})")
+    return dict(t=t, n=n, err=err, ms=ms, plain_ms=plain_ms, work=work, library_ms=None,
+                exact=exact)
+
+
 def check_kernels(torch, inputs, dev, report):
     """Phase 3: each kernel against its plain version at the slice's shapes."""
     from bayesian_ensembling_tpu_torch.ops import dtw_cuda
@@ -313,32 +343,16 @@ def check_kernels(torch, inputs, dev, report):
         centers = centers.repeat_interleave(R, dim=0).contiguous()
         n = series.shape[0]
 
-        got = dtw_cuda.dba_update_batch(centers, series)
-        want = dtw_cuda.dba_update_batch_reference(centers, series)
-        torch.cuda.synchronize()
-        exact = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-        err = max(_abs(got[0], want[0]), _abs(got[1], want[1]))
-        ms = _cuda_ms(torch, lambda: dtw_cuda.dba_update_batch(centers, series), 20)
-        plain_ms = _cuda_ms(torch, lambda: dtw_cuda.dba_update_batch_reference(centers, series), 2)
-        log(f"  dba_update N={n} T={t}: exact={exact} max_abs_err={err:.3e} "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms")
-        ok &= exact
-        report["dba_update"].append(dict(t=t, err=err, ms=ms, plain_ms=plain_ms,
-                                         work=_dba_work(n, t), library_ms=None))
-        # The subgradient DBA's shape: one realisation of each of the B = 112
-        # models against its centre per launch, 1,189 launches a step.
+        # The classic DBA's shape (N = B*R = 3,248 pairs a launch), then the
+        # subgradient DBA's (one realisation of each of the B = 112 models
+        # against its centre, 1,189 launches a step), in float32 and float64.
         sub_c, sub_s = centers[::R].contiguous(), series[::R].contiguous()
-        got = dtw_cuda.dba_update_batch(sub_c, sub_s)
-        want = dtw_cuda.dba_update_batch_reference(sub_c, sub_s)
-        torch.cuda.synchronize()
-        exact = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-        ms = _cuda_ms(torch, lambda: dtw_cuda.dba_update_batch(sub_c, sub_s), 200)
-        plain_ms = _cuda_ms(torch, lambda: dtw_cuda.dba_update_batch_reference(sub_c, sub_s), 2)
-        work = _dba_work(sub_c.shape[0], t)
-        bound_ms, bound_by = _bound(*work)
-        log(f"  dba_update N={sub_c.shape[0]} T={t} (subgradient step): exact={exact} kernel "
-            f"{ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.5f} ms ({bound_by})")
-        ok &= exact
+        for c_, s_, reps in ((centers, series, 20), (sub_c, sub_s, 200)):
+            for dtype in (torch.float32, torch.float64):
+                row = _check_dba(torch, dtw_cuda, c_.to(dtype), s_.to(dtype), reps)
+                ok &= row["exact"]
+                if dtype == torch.float32:
+                    report["dba_update"].append(row)
 
         # B2 / B3 on Matern Grams of this collection's features plus noise,
         # in float32 and, at the historical shape, in float64 too (the
@@ -700,6 +714,22 @@ def check_monthly_kernels(torch, pack, dev, report):
         del c64, s64, got, want
         torch.cuda.empty_cache()
 
+    # Past the cap of byte-wide codes the fused kernel takes T = 720; impl="auto"
+    # sends it there only if it beats the split kernel (ops/dtw_cuda.py,
+    # FUSED_AUTO_T_MAX).  Both bit for bit against the plain version.
+    rng = np.random.default_rng(3)
+    for dtype in (torch.float32, torch.float64):
+        c = torch.tensor(rng.normal(size=(HIST_CHUNK * R, 720)), dtype=dtype, device=dev)
+        x = torch.tensor(rng.normal(size=(HIST_CHUNK * R, 720)), dtype=dtype, device=dev)
+        rows = [_check_dba(torch, dtw_cuda, c, x, 5, impl) for impl in ("fused", "split")]
+        ok &= rows[0]["exact"] and rows[1]["exact"]
+        if dtype == torch.float32:
+            faster = rows[0]["ms"] < rows[1]["ms"]
+            log(f"  T=720: fused {rows[0]['ms']:.4f} ms, split {rows[1]['ms']:.4f} ms; auto sends T=720 "
+                f"to the {'fused' if dtw_cuda.FUSED_AUTO_T_MAX >= 720 else 'split'} kernel "
+                f"(fused faster: {faster})")
+        del c, x
+
     # The split kernel against the fused one at the annual T, same pairs.
     rng = np.random.default_rng(2)
     c = torch.tensor(rng.normal(size=(S * M * R, T_HIST)), dtype=torch.float32, device=dev)
@@ -933,12 +963,13 @@ def check_cost_kernel(torch, inputs, pack, dev, report):
             plain_ms = _cuda_ms(torch, lambda: dtw_cuda.squared_dtw_cost_batch_reference(centers, series), 1)
             work = _cost_work(n, t, centers.element_size())
             bound_ms, bound_by = _bound(*work)
+            prev = _previous(("dtw_cost", n, t)) if dtype == torch.float32 else ""
             log(f"  dtw_cost {label} N={n} T={t} {str(dtype)[6:]}: exact={exact} max_abs_err={err:.3e} "
-                f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+                f"kernel {ms:.4f} ms{prev}, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by})")
             ok &= exact
             if dtype == torch.float32:
                 report["dtw_cost"].append(dict(t=t, n=n, err=err, ms=ms, plain_ms=plain_ms,
-                                               work=work, library_ms=None))
+                                               work=work, library_ms=None, exact=exact))
             else:
                 report["dtw_cost_f64"].append(dict(t=t, n=n, err=err, ms=ms, plain_ms=plain_ms))
             del centers, series, got, want
@@ -1569,6 +1600,9 @@ def main(argv=None):
             "max_abs_err": max(r["err"] for r in report[name]),
             "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": main_shape["library_ms"],
+            "shapes": [{"n": r.get("n"), "t": r["t"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+                        "bound_ms": _bound(*r["work"])[0]}
+                       for r in report[name]],
         })
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -44,10 +44,14 @@ def test_dba_update_split_matches_pallas_interpret(pallas_interpret, t):
     ("t", "dtype", "fused", "split"),
     [
         (165, torch.float32, True, True),  # annual
-        (474, torch.float32, True, True),  # the fused kernel's float32 cap
-        (475, torch.float32, False, True),
-        (466, torch.float64, True, True),  # its float64 cap
-        (467, torch.float64, False, True),
+        (474, torch.float32, True, True),  # the cap of byte-wide codes, and auto's split point
+        (475, torch.float32, True, True),
+        (466, torch.float64, True, True),
+        (467, torch.float64, True, True),
+        (944, torch.float32, True, True),  # the fused kernel's float32 cap (2-bit codes)
+        (945, torch.float32, False, True),
+        (932, torch.float64, True, True),  # its float64 cap
+        (933, torch.float64, False, True),
         (1032, torch.float32, False, True),  # monthly SSP: split through "auto"
         (1980, torch.float32, False, True),  # monthly historical
         (1980, torch.float64, False, True),  # the f64 reference run
@@ -78,7 +82,7 @@ def test_dba_update_impl_errors():
     small = torch.zeros((2, 8), dtype=torch.float64)
     with pytest.raises(ValueError, match="unknown impl"):
         dtw_cuda.dba_update_batch(small, small, impl="scan")
-    mid = torch.zeros((1, 500), dtype=torch.float64)
+    mid = torch.zeros((1, 1000), dtype=torch.float64)
     with pytest.raises(ValueError, match=r"fused DBA kernel.*needs \d+ bytes"):
         dtw_cuda.dba_update_batch(mid, mid, impl="fused")
     huge = torch.zeros((1, 14081), dtype=torch.float64)

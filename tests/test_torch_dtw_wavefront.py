@@ -24,6 +24,7 @@ import pytest
 import torch
 
 from bayesian_ensembling_tpu.ops import dtw_pallas as jdp
+from bayesian_ensembling_tpu_torch import _build
 from bayesian_ensembling_tpu_torch.ops import dtw as tdtw
 from bayesian_ensembling_tpu_torch.ops import dtw_cuda
 
@@ -33,19 +34,21 @@ BAND, WARP, TILE = 64, 32, 32  # csrc/dba_update_split.cu: kBand, lanes a warp, 
 BIG = 3.0e38
 
 
-def wavefront_codes(centers, series, band=BAND, warp=WARP):
-    """The kernel's DP: ``(N, P, T, band // 16)`` int64 code words, 16 codes of 2 bits
-    in each 32-bit part (row g*band + r in part r // 16 at bit 2 (r % 16)),
-    and the band costs of the last column.  Warps run one after the other,
-    the last lane of each handing its bottom row, column by column, to the
-    next warp's first lane."""
+def band_cells(centers, series, band=BAND, warp=WARP, clamp=False):
+    """The band wavefront of ``csrc/dtw_band.cuh`` (and of the split
+    kernel): the ``(N, P, T, band)`` move code of every lane's cells (rows
+    past T included) and the ``(N, P, band)`` band costs at column T-1.
+    Warps run one after the other, the last lane of each handing its bottom
+    row, column by column, to the next warp's first lane.  ``clamp``
+    saturates every valid cell but (0, 0) at 3e38, as the cost kernel does."""
     n, t = centers.shape
     p = -(-t // band)
     n_warps = -(-p // warp)
     dtype = centers.dtype
+    big = torch.tensor(BIG, dtype=dtype)
     cb = torch.zeros((n, p * band), dtype=dtype)
     cb[:, :t] = centers
-    cb = cb.reshape(n, p, band)  # the kernel's cb[r * p + g]
+    cb = cb.reshape(n, p, band)  # lane g's centre values
     cost = torch.full((n, p, band), BIG, dtype=dtype)
     codes = torch.zeros((n, p, t, band), dtype=torch.int64)
     handed = torch.full((n, t), BIG, dtype=dtype)  # the row above the next warp's bands
@@ -55,7 +58,7 @@ def wavefront_codes(centers, series, band=BAND, warp=WARP):
         bottom = torch.full((n, len(lanes)), BIG, dtype=dtype)
         up_prev = torch.full_like(bottom, BIG)
         received = handed.clone()
-        for st in range(t + warp - 1):
+        for st in range(t + len(lanes) - 1):
             j = st - local
             live = (j >= 0) & (j < t)
             jc = j.clamp(0, t - 1)
@@ -72,6 +75,8 @@ def wavefront_codes(centers, series, band=BAND, warp=WARP):
                 best = torch.where(keep, near, tp)
                 d = cb[:, lanes, r] - sj
                 v = best + d * d
+                if clamp:
+                    v = torch.where(v > big, big, v)  # NaN passes
                 if r == 0 and w == 0:
                     first = (lanes == 0) & (j == 0)
                     v = torch.where(first, d * d, v)  # cell (0, 0)
@@ -84,6 +89,15 @@ def wavefront_codes(centers, series, band=BAND, warp=WARP):
             last = len(lanes) - 1
             if live[last] and w + 1 < n_warps:
                 handed[:, j[last]] = bottom[:, last]
+    return codes, cost
+
+
+def wavefront_codes(centers, series, band=BAND, warp=WARP):
+    """The split kernel's DP: ``(N, P, T, band // 16)`` int64 code words, 16
+    codes of 2 bits in each 32-bit part (row g*band + r in part r // 16 at
+    bit 2 (r % 16)), and the band costs of the last column."""
+    codes, cost = band_cells(centers, series, band, warp)
+    n, p, t, _ = codes.shape
     shifts = 2 * (torch.arange(band) % 16)
     parts = (codes << shifts).reshape(n, p, t, band // 16, 16).sum(-1)
     return parts, cost
@@ -217,3 +231,263 @@ def test_split_shared_memory_mirror():
     assert dtw_cuda.SPLIT_DBA_T_CAP[torch.float64] >= 1980
     assert -(-(-(-dtw_cuda.SPLIT_DBA_T_CAP[torch.float32] // BAND)) // WARP) <= 16
     assert -(-(-(-dtw_cuda.SPLIT_DBA_T_CAP[torch.float64] // BAND)) // WARP) <= 8
+
+
+# ---------------------------------------------------------------------------
+# The fused DBA update (csrc/dba_update.cu) and the squared-DTW cost
+# (csrc/dtw_cost.cu) on the same band wavefront (csrc/dtw_band.cuh): band
+# heights H of 1 to 16 rows, several warps a pair, and for the DBA update the
+# move codes as one stream of 32-bit words a band (the code of row g*H + r at
+# column j in slot H*j + r), walked back from the corner with the current
+# word and the one below it in registers.
+
+FUSED_HEIGHTS = (1, 2, 4, 8, 16)  # dba_update.cu: H divides 16
+SIZES = (1, 2, 31, 32, 33, 86, 165)
+
+
+def stream_words(t, h):
+    """Words of one band's stream: T*H slots of 2 bits, an even count."""
+    w = -(-t * h // 16)
+    return -(-w // 2) * 2
+
+
+def pack_streams(codes, h):
+    """``(N, P, W)`` stream words from the ``(N, P, T, H)`` codes: slot
+    H*j + r holds the code of row r of the band at column j."""
+    n, p, t, _ = codes.shape
+    w = stream_words(t, h)
+    slots = torch.zeros((n, p, 16 * w), dtype=torch.int64)
+    slots[:, :, : t * h] = codes.reshape(n, p, t * h)
+    return (slots.reshape(n, p, w, 16) << (2 * torch.arange(16))).sum(-1)
+
+
+def stream_traceback(streams, series, h):
+    """dba_update.cu's walk of one pair, then its row sums: (sums, counts,
+    moves).  The walk reads the bands' streams as one array, cell
+    (g*H + r, j) at slot g*W + H*j + r (W slots a band), and records each
+    row's first and last column; a lane a row then sums the row's cells in
+    descending column order."""
+    t = series.shape[0]
+    add = (lambda a, b: np.float32(a) + np.float32(b)) if series.dtype == torch.float32 else (
+        lambda a, b: float(a) + float(b))
+    s = series.tolist()
+    words = streams.reshape(-1).tolist()
+    w = 16 * streams.shape[1]
+    rows = [None] * t  # (first column, last column); None: never reached
+    ii = jj = enter = t - 1
+    gs = (ii // h) * w + h * jj + ii % h
+    moves = 0
+    while gs != 0:  # slot 0 is cell (0, 0)
+        assert gs == (ii // h) * w + h * jj + ii % h
+        code = words[gs >> 4] >> (2 * (gs & 15)) & 3
+        up, left = code != 1, code != 2
+        if (up and ii == 0) or (left and jj == 0):
+            break  # the path leaves the matrix (after a NaN): it ends here
+        nj = jj - left
+        if up:
+            rows[ii] = (enter, jj)
+            enter = nj
+        gs -= (h if left else 0) + ((1 if gs & (h - 1) else w - h + 1) if up else 0)
+        ii, jj, moves = ii - up, nj, moves + 1
+    rows[ii] = (enter, jj)
+    out_s, out_c = [0.0] * t, [0.0] * t
+    for i, rec in enumerate(rows):
+        if rec is not None:
+            hi, lo = rec
+            acc = add(0.0, s[hi])
+            for jc in range(hi - 1, lo - 1, -1):
+                acc = add(acc, s[jc])
+            out_s[i], out_c[i] = acc, float(hi - lo + 1)
+    return (torch.tensor(np.array(out_s, dtype=np.float64), dtype=series.dtype),
+            torch.tensor(out_c, dtype=series.dtype), moves)
+
+
+def fused_dba(centers, series, h, warp=WARP):
+    codes, _ = band_cells(centers, series, h, warp)
+    streams = pack_streams(codes, h)
+    out = [stream_traceback(streams[k], series[k], h) for k in range(centers.shape[0])]
+    return (torch.stack([o[0] for o in out]), torch.stack([o[1] for o in out]),
+            [o[2] for o in out])
+
+
+def band_cost(centers, series, h, warp=WARP):
+    """dtw_cost.cu: cell (T-1, T-1), held by the lane of row T-1."""
+    t = centers.shape[1]
+    _, cost = band_cells(centers, series, h, warp, clamp=True)
+    return cost[:, (t - 1) // h, (t - 1) % h]
+
+
+def inputs(t, dtype, kind, n=3):
+    """Random pairs, or constant series (every comparison a tie), with a
+    NaN in one series of the random case's third pair."""
+    rng = np.random.default_rng(300 + t)
+    if kind == "constant":
+        c, s = np.full((n, t), 0.5), np.full((n, t), -0.25)
+    else:
+        c, s = rng.normal(size=(n, t)), rng.normal(size=(n, t))
+    return torch.from_numpy(c).to(dtype), torch.from_numpy(s).to(dtype)
+
+
+# Warps of 4 lanes, so that T = 33 at H = 1 takes 9 warps and T = 165 at
+# H = 8 takes 6: the hand-over between warps runs at every size.
+@pytest.mark.parametrize("kind", ["random", "constant"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("t", SIZES)
+@pytest.mark.parametrize("h", FUSED_HEIGHTS)
+def test_fused_streams_equal_plain_bit_for_bit(h, t, dtype, kind):
+    c, s = inputs(t, dtype, kind)
+    got_s, got_c, moves = fused_dba(c, s, h, warp=4)
+    want_s, want_c = dtw_cuda.dba_update_batch_reference(c, s)
+    assert torch.equal(got_c, want_c) and torch.equal(got_s, want_s)
+    # A move of the walk is one cell of the path (the corner excepted).
+    if kind == "random":
+        assert moves == [int(n) - 1 for n in got_c.sum(1)]
+
+
+@pytest.mark.parametrize("h", FUSED_HEIGHTS)
+def test_fused_streams_hold_the_plain_move_codes(h):
+    """Every valid cell's code, read from its stream slot, is the plain
+    DP's; one warp of 32 lanes as the kernel at the classic DBA's N."""
+    t = 86
+    c, s = inputs(t, torch.float64, "random")
+    codes, cost = band_cells(c, s, h)
+    streams = pack_streams(codes, h)
+    assert streams.shape == (3, -(-t // h), stream_words(t, h))
+    total, path = tdtw._dtw_scan(c, s, want_path=True)
+    i, j = torch.meshgrid(torch.arange(t), torch.arange(t), indexing="ij")
+    slot = h * j + i % h
+    got = (streams[:, i // h, slot // 16] >> (2 * (slot % 16))) & 3
+    want = path[:, i + j, i].long()
+    valid = (i + j) > 0
+    assert torch.equal(got[:, valid], want[:, valid])
+    assert torch.equal(cost.reshape(3, -1)[:, t - 1], total)
+
+
+@pytest.mark.parametrize("kind", ["random", "constant"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("t", SIZES)
+@pytest.mark.parametrize("h", [1, 3, 6, 64])
+def test_band_cost_equals_plain_bit_for_bit(h, t, dtype, kind):
+    c, s = inputs(t, dtype, kind)
+    got = band_cost(c, s, h, warp=4 if h < 64 else WARP)
+    want = dtw_cuda.squared_dtw_cost_batch_reference(c, s)
+    assert torch.equal(got, want)
+
+
+def test_band_nan_follows_the_plain_tie_break():
+    """A NaN in a series: the two-step tie-break picks the plain version's
+    move at every cell, so sums, counts and costs agree, NaN for NaN."""
+    t = 33
+    c, s = inputs(t, torch.float64, "random")
+    s[2, 10] = float("nan")
+    c[1, 20] = float("nan")
+    for h in (1, 4):
+        got_s, got_c, _ = fused_dba(c, s, h, warp=4)
+        want_s, want_c = dtw_cuda.dba_update_batch_reference(c, s)
+        assert torch.equal(got_c, want_c)
+        assert torch.equal(got_s.isnan(), want_s.isnan())
+        assert torch.equal(got_s.nan_to_num(), want_s.nan_to_num())
+    # Where the path around a NaN reaches the sentinel, the cost kernel
+    # returns its 3e38 where the plain version's +inf sentinel leaks through
+    # (the TPU cost kernel's sentinel too).
+    want = dtw_cuda.squared_dtw_cost_batch_reference(c, s)
+    want = torch.where(want > BIG, BIG, want)
+    for h in (1, 3):
+        got = band_cost(c, s, h, warp=4)
+        assert torch.equal(got.isnan(), want.isnan())
+        assert torch.equal(got.nan_to_num(), want.nan_to_num())
+
+
+def test_band_cost_saturates_as_the_tpu_kernel():
+    """Valid cells past 3e38 saturate there in float32, cell (0, 0) alone
+    excepted, as the TPU cost kernel's jnp.minimum does."""
+    c = torch.tensor([[1.5e19, 1.5e19, 0.0]], dtype=torch.float32)
+    s = torch.zeros_like(c)
+    got = band_cost(c, s, 1, warp=2)
+    assert got.item() == np.float32(BIG)
+    single = band_cost(c[:, :1], s[:, :1], 1, warp=2)
+    assert single.item() == np.float32(1.5e19) ** 2
+
+
+@pytest.mark.parametrize("t", [2, 9, 21, 33])
+def test_band_models_equal_jax_kernels(pallas_interpret, t):
+    """Against the JAX package's fused DBA-update kernel (bit for bit) and
+    cost kernel (to 1e-10) in Pallas interpret mode, float64."""
+    c, s = pairs(t)
+    want_s, want_c = jdp.dba_update_batch(jnp.asarray(c.numpy()), jnp.asarray(s.numpy()), impl="fused")
+    want = jdp.squared_dtw_cost_batch(jnp.asarray(c.numpy()), jnp.asarray(s.numpy()), lanes=128)
+    for h in (1, 2, 8):
+        got_s, got_c, _ = fused_dba(c, s, h, warp=4)
+        np.testing.assert_array_equal(got_c.numpy(), np.asarray(want_c))
+        np.testing.assert_array_equal(got_s.numpy(), np.asarray(want_s))
+    # The cost kernel's JAX run rounds within an ulp of the exact DP (as in
+    # test_torch_dtw_cost.py); the plain version is held bit for bit above.
+    for h in (1, 3, 6):
+        np.testing.assert_allclose(band_cost(c, s, h, warp=4).numpy(), np.asarray(want), rtol=1e-10)
+
+
+def test_fused_shared_memory_mirror():
+    """``_fused_smem_bytes`` is dba_update.cu's request: per pair, rounded
+    up to 16 bytes, the bands' code streams (an even number of words of 16
+    codes), the series, a ring of 128 values and two counters between each
+    two warps, and a 4-byte record a row; about T^2 / 4 bytes of codes (T^2
+    in bytes before)."""
+    for t, e, h, ppb in [(165, 4, 8, 4), (165, 4, 2, 1), (86, 8, 1, 1), (944, 4, 16, 1),
+                         (932, 8, 16, 1), (33, 4, 16, 3)]:
+        bands = -(-t // h)
+        warps = -(-bands // WARP)
+        raw = 4 * bands * stream_words(t, h) + e * t + (warps - 1) * (128 * e + 8) + 4 * t
+        assert dtw_cuda._fused_smem_bytes(t, e, h, ppb) == ppb * (-(-raw // 16) * 16)
+    codes = 4 * -(-165 // 8) * stream_words(165, 8)
+    assert 165 ** 2 / 4 <= codes < 165 ** 2 / 4 + 16 * 21 and codes < 7.1e3
+    assert dtw_cuda.FUSED_DBA_T_CAP == {torch.float32: 944, torch.float64: 932}
+    for dtype in (torch.float32, torch.float64):
+        e = dtype.itemsize
+        cap = dtw_cuda.FUSED_DBA_T_CAP[dtype]
+        assert dtw_cuda._fused_smem_bytes(cap, e) <= _build.SMEM_BYTES < dtw_cuda._fused_smem_bytes(cap + 1, e)
+    assert dtw_cuda.FUSED_AUTO_T_MAX <= dtw_cuda.FUSED_DBA_T_CAP[torch.float64]
+
+
+@pytest.mark.parametrize("t", [1, 2, 32, 33, 64, 65, 86, 128, 129, 165, 256, 257, 474, 512, 513, 720, 932])
+@pytest.mark.parametrize("e", [4, 8])
+def test_fused_layout_rule(t, e):
+    """The launcher's layout: a built height, at most 512 threads a block,
+    shared memory within the card's; one warp a pair (the smallest height
+    that gives at most 32 bands) with pairs sharing a block up to T = 512,
+    then H = 16 and one pair a block."""
+    h, ppb = dtw_cuda._fused_layout(t, e)
+    warps = -(-(-(-t // h)) // WARP)
+    assert h in FUSED_HEIGHTS and 32 * warps * ppb <= 512
+    assert dtw_cuda._fused_smem_bytes(t, e, h, ppb) <= _build.SMEM_BYTES
+    if t <= 512:
+        assert warps == 1 and (h == 1 or -(-t // (h // 2)) > 32) and ppb >= 3
+    else:
+        assert h == 16 and ppb == 1
+    assert dtw_cuda._fused_layout(165, 4) == (8, 4)
+    assert dtw_cuda._fused_layout(86, 8) == (4, 4)
+
+
+@pytest.mark.parametrize("t", [1, 2, 31, 32, 33, 86, 165, 512, 513, 1024, 1025, 1032, 1980, 2048,
+                               2049, 8192, 8193, 16384])
+@pytest.mark.parametrize("e", [4, 8])
+def test_cost_layout_and_shared_memory_mirror(t, e):
+    """dtw_cost.cu: one warp a pair (H = ceil(T/32) rounded up to a built
+    height) while a built height allows it, up to T = 1,024 in float32 and
+    512 in float64; then the largest height and several warps a pair; four
+    pairs a block up to two warps a pair; per pair the series and the rings."""
+    if t > dtw_cuda.DTW_COST_T_CAP[torch.float32 if e == 4 else torch.float64]:
+        return
+    h, ppb = dtw_cuda._cost_layout(t, e)
+    heights = dtw_cuda._COST_HEIGHTS[e]
+    warps = -(-(-(-t // h)) // WARP)
+    assert h in heights and heights[-1] == (32 if e == 4 else 16)
+    if warps == 1:
+        assert h == heights[0] or 32 * heights[heights.index(h) - 1] < t
+    else:
+        assert h == heights[-1] and t > 32 * h
+    assert 32 * warps * ppb <= 512 and (warps == 1) == (t <= (1024 if e == 4 else 512))
+    assert ppb == (4 if warps <= 2 else 1)
+    raw = e * t + (warps - 1) * (128 * e + 8)
+    assert dtw_cuda._cost_smem_bytes(t, e) == ppb * (-(-raw // 16) * 16) <= _build.SMEM_BYTES
+    assert dtw_cuda._cost_layout(165, 4) == (6, 4) and dtw_cuda._cost_layout(86, 8) == (3, 4)
+    assert dtw_cuda._cost_layout(1980, 4) == (32, 4) and dtw_cuda._cost_layout(1980, 8) == (16, 1)

@@ -47,19 +47,89 @@ def rel_err(got, want):
     return (got - want).abs().max().item() / max(1.0, want.abs().max().item())
 
 
-@pytest.mark.parametrize("t", [2, 9, 86, 165])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_dba_update_kernel_matches_plain(cuda_device, t, dtype):
+# Band edges of csrc/dtw_band.cuh (31 / 32 / 33 rows, 64 / 65), the annual
+# T = 86 and 165, the cap of byte-wide codes (474) and the fused cap; N = 112
+# is the subgradient DBA's launch, 3,248 the classic DBA's (T <= 165 there:
+# the plain version's move codes take N (2T - 1) T bytes).
+DBA_SIZES = [1, 2, 9, 31, 32, 33, 64, 65, 86, 165, 474, "cap"]
+
+
+def _dba_t(t, dtype):
+    return dtw_cuda.FUSED_DBA_T_CAP[dtype] if t == "cap" else t
+
+
+def _dba_pairs(n, t, dtype, device, kind="random"):
     gen = torch.Generator().manual_seed(t)
-    c = torch.randn((64, t), generator=gen, dtype=dtype).to(cuda_device)
-    s = torch.randn((64, t), generator=gen, dtype=dtype).to(cuda_device)
+    if kind == "constant":  # every comparison a tie
+        return (torch.full((n, t), 0.5, dtype=dtype, device=device),
+                torch.full((n, t), -0.25, dtype=dtype, device=device))
+    return (torch.randn((n, t), generator=gen, dtype=dtype).to(device),
+            torch.randn((n, t), generator=gen, dtype=dtype).to(device))
+
+
+@pytest.mark.parametrize("n,t", [(n, t) for n in (112, 3248) for t in DBA_SIZES
+                                 if n == 112 or t not in (474, "cap")])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_dba_update_kernel_matches_plain(cuda_device, t, dtype, n):
+    t = _dba_t(t, dtype)
+    c, s = _dba_pairs(n, t, dtype, cuda_device)
     reset_launch_counts()
-    got_s, got_c = dtw_cuda.dba_update_batch(c, s)
-    assert launch_counts()["dba_update"] == 1
+    got_s, got_c = dtw_cuda.dba_update_batch(c, s, impl="fused")
+    assert launch_counts()["dba_update"] == (t > 1)
     want_s, want_c = dtw_cuda.dba_update_batch_reference(c, s)
     torch.cuda.synchronize()
     assert torch.equal(got_c, want_c)
     assert torch.equal(got_s, want_s)
+
+
+@pytest.mark.parametrize("kind", ["nan", "constant"])
+@pytest.mark.parametrize("t", [2, 33, 86, 165])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_dba_update_kernel_nan_and_ties(cuda_device, t, dtype, kind):
+    """A NaN in one series (the path past it ends where the plain version's
+    does) and constant series (all ties), at both layouts."""
+    for n in (112, 3248):
+        c, s = _dba_pairs(n, t, dtype, cuda_device, "constant" if kind == "constant" else "random")
+        if kind == "nan":
+            s[7, t // 2] = float("nan")
+        got_s, got_c = dtw_cuda.dba_update_batch(c, s)
+        want_s, want_c = dtw_cuda.dba_update_batch_reference(c, s)
+        torch.cuda.synchronize()
+        assert torch.equal(got_c, want_c)
+        assert torch.equal(got_s.isnan(), want_s.isnan())
+        assert torch.equal(got_s.nan_to_num(), want_s.nan_to_num())
+
+
+@pytest.mark.parametrize("h", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("t", [2, 33, 86, 165])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_dba_update_kernel_every_band_height(cuda_device, t, dtype, h):
+    """Every built height, one pair a block and four, several warps a pair
+    at the small heights; the launcher refuses a height it lacks."""
+    c, s = _dba_pairs(40, t, dtype, cuda_device)
+    want_s, want_c = dtw_cuda.dba_update_batch_reference(c, s)
+    for ppb in (1, 4):
+        if 32 * -(-(-(-t // h)) // 32) * ppb > 512:
+            continue
+        got_s, got_c = torch.empty_like(c), torch.empty_like(c)
+        dtw_cuda._launch_fused(c, s, got_s, got_c, h, ppb)
+        torch.cuda.synchronize()
+        assert torch.equal(got_c, want_c) and torch.equal(got_s, want_s)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        dtw_cuda._launch_fused(c, s, got_s, got_c, 3, 1)
+
+
+def test_dba_update_fused_equals_split_at_720(cuda_device):
+    """Past the cap of byte-wide codes the fused kernel takes T = 720, equal
+    to the split kernel and the plain version in both dtypes."""
+    for dtype in (torch.float32, torch.float64):
+        c, s = _dba_pairs(64, 720, dtype, cuda_device)
+        fused = dtw_cuda.dba_update_batch(c, s, impl="fused")
+        split = dtw_cuda.dba_update_batch(c, s, impl="split")
+        want = dtw_cuda.dba_update_batch_reference(c, s)
+        torch.cuda.synchronize()
+        for got in (fused, split):
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 # The panel designs' edges: one column, one short panel, one row short of a
@@ -223,19 +293,20 @@ def test_kernels_refuse_what_they_lack(cuda_device):
     with pytest.raises(RuntimeError, match="launch failed"):
         tlc.chol(torch.zeros((1, 241, 241), dtype=torch.float32, device=cuda_device))
     with pytest.raises(ValueError, match="impl='split'"):
-        dtw_cuda.dba_update_batch(torch.zeros((2, 500), device=cuda_device),
-                                  torch.zeros((2, 500), device=cuda_device), impl="fused")
+        dtw_cuda.dba_update_batch(torch.zeros((2, 1000), device=cuda_device),
+                                  torch.zeros((2, 1000), device=cuda_device), impl="fused")
     big_t = dtw_cuda.DTW_COST_T_CAP[torch.float64] + 1
-    with pytest.raises(ValueError, match="shared-memory cap"):
+    with pytest.raises(ValueError, match="cost kernel's cap"):
         dtw_cuda.squared_dtw_cost_batch(torch.zeros((1, big_t), dtype=torch.float64, device=cuda_device),
                                         torch.zeros((1, big_t), dtype=torch.float64, device=cuda_device))
 
 
-@pytest.mark.parametrize("t", [1, 2, 165, 1980])
+@pytest.mark.parametrize("t", [1, 2, 31, 32, 33, 64, 65, 86, 165, 474, 513, 1024, 1025, 1032, 1980, 2049, 4500])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_dtw_cost_kernel_matches_plain(cuda_device, t, dtype):
-    """N = 37 pairs fill no whole wave of blocks; T = 1980 strides rows over
-    the block's 512 threads."""
+    """N = 37 pairs fill no whole block of four; past T = 1,024 in float32
+    and 512 in float64 a pair takes several warps handing rows on through
+    shared memory (T = 1980: 2 / 4)."""
     gen = torch.Generator().manual_seed(t)
     c = torch.randn((37, t), generator=gen, dtype=dtype).to(cuda_device)
     s = torch.randn((37, t), generator=gen, dtype=dtype).to(cuda_device)
@@ -246,6 +317,28 @@ def test_dtw_cost_kernel_matches_plain(cuda_device, t, dtype):
     torch.cuda.synchronize()
     assert got.shape == (37,) and got.dtype == dtype
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n", [112, 3248])
+@pytest.mark.parametrize("t", [1, 2, 33, 86, 165, "cap"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_dtw_cost_kernel_at_the_path_sizes(cuda_device, t, dtype, n):
+    """The subgradient epoch's N = 3,248 and a small N, up to the cap (16
+    warps a pair); a NaN in one series and constant series (ties): the
+    kernel's 3e38 sentinel stands where the plain version's +inf leaks."""
+    t = dtw_cuda.DTW_COST_T_CAP[dtype] if t == "cap" else t
+    if t > 4500:
+        n = 4
+    for kind in ("random", "constant", "nan"):
+        c, s = _dba_pairs(n, t, dtype, cuda_device, "constant" if kind == "constant" else "random")
+        if kind == "nan":
+            s[3, t // 2] = float("nan")
+        got = dtw_cuda.squared_dtw_cost_batch(c, s)
+        want = dtw_cuda.squared_dtw_cost_batch_reference(c, s)
+        want = torch.where(want > 3.0e38, torch.tensor(3.0e38, dtype=dtype, device=cuda_device), want)
+        torch.cuda.synchronize()
+        assert torch.equal(got.isnan(), want.isnan())
+        assert torch.equal(got.nan_to_num(), want.nan_to_num())
 
 
 def test_dtw_cost_kernel_serves_the_medoid_and_subgradient_paths(cuda_device):
