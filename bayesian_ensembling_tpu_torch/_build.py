@@ -52,8 +52,8 @@ _SIGNATURES = {
     "bet_dba_update_split_f64": (5, 2),
     "bet_dtw_cost_f32": (3, 4),
     "bet_dtw_cost_f64": (3, 4),
-    "bet_solve_vec_f32": (5, 2),
-    "bet_solve_vec_f64": (5, 2),
+    "bet_solve_vec_f32": (5, 3),
+    "bet_solve_vec_f64": (5, 3),
 }
 
 # Launches per kernel since the last reset: each wrapper adds one where it

@@ -37,7 +37,8 @@
 //    words back to back, one 32-byte sector) and the traceback finds a
 //    cell's upper neighbour in the same word and its left neighbours in the
 //    next word down.
-//  * Traceback by the first warp from the corner, as dba_update.cu's: the
+//  * Traceback by the first warp from the corner, as dba_update.cu's (a
+//    move out of the matrix ends the path, rows it never reached sum to 0): the
 //    warp stages 32 consecutive words of the current band (512 bytes,
 //    coalesced) in shared memory and every lane walks the path on them, so
 //    device memory is waited on once per 32 columns or band change (about
@@ -221,9 +222,10 @@ __global__ void __launch_bounds__(32 * SplitWarps<T>::kMax)
       const uint4 word = tile[jj - tile_lo];
       const int r = ii % kBand;
       const unsigned part = r < 16 ? word.x : r < 32 ? word.y : r < 48 ? word.z : word.w;
-      int code = (part >> (2 * (r & 15))) & 3;
-      if (ii == 0) code = 1;       // the first row can only move left
-      else if (jj == 0) code = 2;  // the first column can only move up
+      const int code = (part >> (2 * (r & 15))) & 3;
+      // A move out of the matrix (only after a NaN or past the float
+      // range) ends the path there, as the plain version's sweep does.
+      if ((code != 1 && ii == 0) || (code != 2 && jj == 0)) break;
       const int ni = ii - (code != 1);
       jj -= (code != 2);
       if (ni != ii) {
@@ -239,8 +241,12 @@ __global__ void __launch_bounds__(32 * SplitWarps<T>::kMax)
       cnt += T(1);
     }
     if (lane == 0) {
-      out_s[0] = acc;
-      out_c[0] = cnt;
+      out_s[ii] = acc;
+      out_c[ii] = cnt;
+    }
+    for (int i = lane; i < ii; i += 32) {  // rows the path never reached
+      out_s[i] = T(0);
+      out_c[i] = T(0);
     }
   }
 }

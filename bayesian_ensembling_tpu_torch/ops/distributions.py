@@ -78,15 +78,16 @@ class FullCovGaussian:
     def log_prob(self, x: torch.Tensor) -> torch.Tensor:
         """Joint log-density of the N-dimensional vector(s) ``x`` ``(..., N)``.
 
-        One vector goes through the vector-solve kernel (z and the
-        log-determinant in one launch); many vectors are a triangular solve
-        with a matrix right-hand side, left to ``torch.linalg``.
+        One vector goes through the vector-solve kernel's forward pass (z
+        and the log-determinant in one launch); many vectors are a
+        triangular solve with a matrix right-hand side, left to
+        ``torch.linalg``.
         """
         n = self.mean.shape[-1]
         chol = self.chol()
         diff = x - self.mean
         if diff.dim() == 1:
-            z, _, logdet = linalg_cuda.solve_vec(chol[None].contiguous(), diff[None].contiguous())
+            z, logdet = linalg_cuda.solve_vec_forward(chol[None].contiguous(), diff[None].contiguous())
             z, logdet = z[0], logdet[0]
         else:
             flat = diff.reshape(-1, n)

@@ -16,9 +16,11 @@ transposes.  CUDA tensors go to the kernels; CPU tensors go to the
 ``*_reference`` functions.
 
 The factorising kernels hold a whole matrix in one block's shared memory,
-which caps T (:data:`KERNEL_T_CAP`); the vector solve reads its factor from
-device memory and holds only vectors (:data:`SOLVE_VEC_T_CAP`).  Beyond
-:data:`KERNEL_T_CAP` :func:`linalg_path` sends the NLML of a
+which caps T (:data:`KERNEL_T_CAP`); the vector solve holds the packed
+triangle of its factor there up to :data:`SOLVE_VEC_RESIDENT_T_CAP` and
+streams it through a ring of row panels beyond, up to
+:data:`SOLVE_VEC_T_CAP`.  Beyond :data:`KERNEL_T_CAP` :func:`linalg_path`
+sends the NLML of a
 large float32 batch to the recursive blocked NLML (``ops/linalg_blocked.py``,
 on the Cholesky and triangular-inverse kernels) and everything else to
 ``torch.linalg`` ("library"), where the JAX package uses XLA's
@@ -98,16 +100,43 @@ KERNEL_T_CAP = {
 }
 
 
-def _solve_vec_smem_bytes(t: int, itemsize: int) -> int:
-    """Shared memory of the vector solve at T, as the launcher in
-    ``csrc/solve_vec.cu`` sizes it: z, the backward accumulator, one
-    32 x 33 triangle and two 32-vectors."""
-    return itemsize * (2 * t + 32 * 33 + 2 * 32)
+def _solve_vec_resident_smem_bytes(t: int, itemsize: int) -> int:
+    """Shared memory of the vector solve's resident layout at T, as the
+    launcher in ``csrc/solve_vec.cu`` sizes it: 128 bytes of mbarriers (one
+    a 32-row panel), three T-vectors (the right-hand side, the forward
+    sums, the reciprocals of the diagonal) each rounded up to 16 bytes, and
+    the packed lower triangle, T (T + 1) / 2 values."""
+    return 128 + 3 * (-(-itemsize * t // 16) * 16) + itemsize * (t * (t + 1) // 2)
 
 
-# Largest T of the vector solve: 28,496 in float32, 13,968 in float64.
+# Stages of the streamed layout's ring, and the bytes of one: a tile of 32
+# rows of W columns (W = 128 in float32, 64 in float64), dense.
+SOLVE_VEC_STAGES = 6
+_SOLVE_VEC_STAGE_BYTES = 16384
+
+
+def _solve_vec_chunk_width(itemsize: int) -> int:
+    """W: the columns of one stage, and the streamed layout's consumer threads."""
+    return _SOLVE_VEC_STAGE_BYTES // (32 * itemsize)
+
+
+def _solve_vec_streamed_smem_bytes(t: int, itemsize: int) -> int:
+    """Shared memory of the streamed layout at T: the ring, 256 bytes of
+    mbarriers and counters, the consumers' dot products of two panels (32
+    values a consumer warp each), and one T-vector (z, then alpha)."""
+    dots = itemsize * 2 * _solve_vec_chunk_width(itemsize)
+    return SOLVE_VEC_STAGES * _SOLVE_VEC_STAGE_BYTES + 256 + dots + -(-itemsize * t // 16) * 16
+
+
+# Largest T of the resident layout: 337 in float32, 237 in float64 (every
+# library shape); beyond it the streamed layout, up to SOLVE_VEC_T_CAP:
+# 33,216 in float32, 16,608 in float64.
+SOLVE_VEC_RESIDENT_T_CAP = {
+    dtype: _build.largest_t(lambda t, e=dtype.itemsize: _solve_vec_resident_smem_bytes(t, e))
+    for dtype in (torch.float32, torch.float64)
+}
 SOLVE_VEC_T_CAP = {
-    dtype: _build.largest_t(lambda t, e=dtype.itemsize: _solve_vec_smem_bytes(t, e))
+    dtype: _build.largest_t(lambda t, e=dtype.itemsize: _solve_vec_streamed_smem_bytes(t, e))
     for dtype in (torch.float32, torch.float64)
 }
 # The JAX package's blocked-route gates, kept by name and value
@@ -246,6 +275,36 @@ def chol(ky: torch.Tensor) -> torch.Tensor:
     return l
 
 
+def _solve_vec_layout(t: int, dtype: torch.dtype) -> str:
+    """``"resident"`` (the packed triangle in shared memory) up to
+    :data:`SOLVE_VEC_RESIDENT_T_CAP`, else ``"streamed"`` (a ring of row
+    panels); the launch raises past :data:`SOLVE_VEC_T_CAP`."""
+    return "resident" if t <= SOLVE_VEC_RESIDENT_T_CAP.get(dtype, 0) else "streamed"
+
+
+def _solve_vec_checked(l: torch.Tensor, y: torch.Tensor) -> None:
+    b, t, t2 = l.shape
+    if t != t2 or y.shape != (b, t):
+        raise ValueError(f"expected (B, T, T) and (B, T), got {l.shape} and {y.shape}")
+
+
+def _launch_solve_vec(l: torch.Tensor, y: torch.Tensor, forward_only: bool):
+    """One launch of the vector-solve kernel: ``(z, alpha or None, logdet)``."""
+    b, t = l.shape[0], l.shape[1]
+    _build.check_cuda("solve_vec", l, y)
+    z = torch.empty_like(y)
+    alpha = None if forward_only else torch.empty_like(y)
+    logdet = torch.empty((b,), dtype=l.dtype, device=l.device)
+    flags = int(forward_only) | (2 if _solve_vec_layout(t, l.dtype) == "streamed" else 0)
+    _build.launch(
+        "solve_vec",
+        f"bet_solve_vec_{_build.symbol_suffix(l.dtype)}",
+        l.data_ptr(), y.data_ptr(), z.data_ptr(), 0 if alpha is None else alpha.data_ptr(),
+        logdet.data_ptr(), b, t, flags,
+    )
+    return z, alpha, logdet
+
+
 def solve_vec(l: torch.Tensor, y: torch.Tensor):
     """Both substitutions and the log-determinant for given factors.
 
@@ -264,21 +323,23 @@ def solve_vec(l: torch.Tensor, y: torch.Tensor):
       ``logdet``, as in the plain version; the other matrices of the batch
       are unaffected.
     """
-    b, t, t2 = l.shape
-    if t != t2 or y.shape != (b, t):
-        raise ValueError(f"expected (B, T, T) and (B, T), got {l.shape} and {y.shape}")
+    _solve_vec_checked(l, y)
     if l.device.type == "cpu":
         return solve_vec_reference(l, y)
-    _build.check_cuda("solve_vec", l, y)
-    z = torch.empty_like(y)
-    alpha = torch.empty_like(y)
-    logdet = torch.empty((b,), dtype=l.dtype, device=l.device)
-    _build.launch(
-        "solve_vec",
-        f"bet_solve_vec_{_build.symbol_suffix(l.dtype)}",
-        l.data_ptr(), y.data_ptr(), z.data_ptr(), alpha.data_ptr(), logdet.data_ptr(), b, t,
-    )
-    return z, alpha, logdet
+    return _launch_solve_vec(l, y, forward_only=False)
+
+
+def solve_vec_forward(l: torch.Tensor, y: torch.Tensor):
+    """``(z, logdet)`` of :func:`solve_vec` without alpha: the same kernel
+    with its backward pass off (one launch, counted as a ``solve_vec``
+    launch), for callers that drop alpha.  z and logdet equal the full
+    launch's bit for bit.  Internal to the port: not in ``__all__``."""
+    _solve_vec_checked(l, y)
+    if l.device.type == "cpu":
+        z, _, logdet = solve_vec_reference(l, y)
+        return z, logdet
+    z, _, logdet = _launch_solve_vec(l, y, forward_only=True)
+    return z, logdet
 
 
 def tri_inv(l: torch.Tensor) -> torch.Tensor:

@@ -51,8 +51,9 @@ def fullcov_constant_vector_log_likelihood(
       ll_t = -0.5 * (|obs_t a - b|^2 + logdet Sigma + T log 2pi).
 
     ``a``, ``b`` and the log-determinant come from two calls of
-    :func:`~bayesian_ensembling_tpu_torch.ops.linalg_cuda.solve_vec` (the
-    vector-solve kernel on the card), batched over the models.
+    :func:`~bayesian_ensembling_tpu_torch.ops.linalg_cuda.solve_vec_forward`
+    (the vector-solve kernel's forward pass on the card), batched over the
+    models.
 
     Args:
       mean: ``(M, T)`` posterior means (or ``(T,)`` for one model).
@@ -69,8 +70,8 @@ def fullcov_constant_vector_log_likelihood(
         mean, chol = mean[None], chol[None]
     t = mean.shape[-1]
     chol = chol.contiguous()
-    a, _, logdet = linalg_cuda.solve_vec(chol, torch.ones_like(mean))
-    b, _, _ = linalg_cuda.solve_vec(chol, mean.contiguous())
+    a, logdet = linalg_cuda.solve_vec_forward(chol, torch.ones_like(mean))
+    b, _ = linalg_cuda.solve_vec_forward(chol, mean.contiguous())
     # |obs_t * a - b|^2 = obs_t^2 |a|^2 - 2 obs_t a.b + |b|^2
     aa = torch.sum(a * a, dim=-1)[:, None, None]
     ab = torch.sum(a * b, dim=-1)[:, None, None]

@@ -1,9 +1,10 @@
-"""Check and time the Cholesky, Cholesky-solve and triangular-inverse kernels
-on the card, beside the PyTorch call for the same function.
+"""Check and time the Cholesky, Cholesky-solve, triangular-inverse and
+vector-solve kernels on the card, beside the PyTorch call for the same
+function.
 
 Run from the repository root on a machine with an NVIDIA GPU and nvcc::
 
-    python3 -m bayesian_ensembling_tpu_torch.utils.linalg_kernel_times [--reps 200]
+    python3 -m bayesian_ensembling_tpu_torch.utils.linalg_kernel_times [--reps 200] [--only solve_vec]
 
 It builds the kernels, prints what ptxas reports for the three (registers,
 spills, shared memory), holds each kernel against its plain version over a
@@ -16,6 +17,10 @@ its time inside a CUDA graph of 20 launches, where the host's launch rate
 (about 0.02 ms a call through the wrapper) no longer shows.  ``--sweep``
 adds the kernels'
 times over T at B = 16, from which the cost of one more panel can be read.
+``--only solve_vec`` checks and times the vector solve alone instead: full
+and forward-only (z and logdet bit for bit the full launch's), both layouts
+at the resident shapes, beside two ``solve_triangular`` calls, through the
+wrapper and in a CUDA graph, with the bytes a block streams a second.
 Exits non-zero if a check fails.
 """
 
@@ -151,6 +156,57 @@ def times(dev, reps):
                   f"chol_solve {graphed[2]:.4f} ms")
 
 
+# (B, T) of the vector solve: one library scenario's two collections, the
+# B = 1 of FullCovGaussian.log_prob, the annual batch, the monthly batches,
+# and one block streaming alone.
+SOLVE_VEC_SHAPES = ((16, 165), (16, 86), (1, 165), (112, 165), (65, 1032), (28, 1980), (1, 1980))
+
+
+def solve_vec_times(dev, reps):
+    """The vector solve against its plain version (the forward-only launch's
+    z and logdet bit for bit against the full launch's), timed beside two
+    solve_triangular calls, through the wrapper and in a CUDA graph; at the
+    resident layout's shapes the streamed layout too."""
+    ok = True
+    caps = dict(lc.SOLVE_VEC_RESIDENT_T_CAP)
+    for dtype in (torch.float32, torch.float64):
+        for b, t in SOLVE_VEC_SHAPES:
+            rng = np.random.default_rng(b * t)
+            l = lc.chol_reference(torch.from_numpy(make_spd(rng, b, t)).to(dev, dtype)).contiguous()
+            y = torch.from_numpy(rng.normal(size=(b, t))).to(dev, dtype)
+            want = lc.solve_vec_reference(l, y)
+
+            def two_solves():
+                z = torch.linalg.solve_triangular(l, y[..., None], upper=False)
+                return torch.linalg.solve_triangular(l.mT, z, upper=True)
+
+            n = reps if t < 1000 else max(1, reps // 10)
+            layouts = ["resident", "streamed"] if lc._solve_vec_layout(t, dtype) == "resident" else ["streamed"]
+            for layout in layouts:
+                if layout == "streamed":
+                    lc.SOLVE_VEC_RESIDENT_T_CAP[dtype] = 0
+                try:
+                    got = lc.solve_vec(l, y)
+                    fwd = lc.solve_vec_forward(l, y)
+                    err = max(rel(g, w) for g, w in zip(got, want))
+                    same = torch.equal(fwd[0], got[0]) and torch.equal(fwd[1], got[2])
+                    ok &= err < TOL[dtype] and same
+                    full, lib = in_turns(lambda: lc.solve_vec(l, y), two_solves, n)
+                    forward = cuda_ms(lambda: lc.solve_vec_forward(l, y), n)
+                    graphed = [graph_ms(f, n) for f in (lambda: lc.solve_vec(l, y),
+                                                        lambda: lc.solve_vec_forward(l, y), two_solves)]
+                finally:
+                    lc.SOLVE_VEC_RESIDENT_T_CAP.update(caps)
+                # What one block (one matrix) streams: the triangle's bytes over the
+                # forward-only launch's time in a graph.
+                rate = t * (t + 1) / 2 * l.element_size() / (graphed[1] * 1e-3) / 1e9
+                print(f"  solve_vec B={b} T={t} {str(dtype)[6:]} {layout}: rel err {err:.1e}, forward-only "
+                      f"equal {same}; kernel {full:.4f} ms, forward-only {forward:.4f} ms, two "
+                      f"solve_triangular {lib:.4f} ms; in a CUDA graph: kernel {graphed[0]:.4f}, forward-only "
+                      f"{graphed[1]:.4f}, two solve_triangular {graphed[2]:.4f} ms; {rate:.1f} GB/s a block")
+    return ok
+
+
 def sweep(dev, reps):
     for dtype in (torch.float32, torch.float64):
         for t in (1, 16, 32, 33, 48, 64, 65, 96, 128, 160, 165) + ((192, 224, 239) if dtype == torch.float32 else ()):
@@ -168,6 +224,7 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--reps", type=int, default=200, help="launches per timing turn")
     parser.add_argument("--sweep", action="store_true", help="also time the kernels over T at B = 16")
+    parser.add_argument("--only", choices=["solve_vec"], help="only the vector solve")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("needs an NVIDIA GPU", file=sys.stderr)
@@ -179,11 +236,13 @@ def main(argv=None):
     print(f"built in {_build.build_info['seconds']:.1f} s")
     lines = _build.build_info["log"].splitlines()
     for i, line in enumerate(lines):
-        if "Compiling entry function" in line and any(s in line for s in ("chol", "tri_inv")):
+        if "Compiling entry function" in line and any(s in line for s in ("chol", "tri_inv", "solve_vec")):
             print("  " + line.split("Compiling entry function")[1].strip())
             for follow in lines[i + 1:i + 4]:
                 if "registers" in follow or "spill" in follow:
                     print("    " + follow.replace("ptxas info    :", "").strip())
+    if args.only == "solve_vec":
+        return 0 if solve_vec_times(dev, args.reps) else 1
     ok = check(dev)
     times(dev, args.reps)
     if args.sweep:

@@ -1,11 +1,11 @@
 """Where the cycles of the Cholesky, Cholesky-solve and triangular-inverse
-kernels, and of the DBA-update and squared-DTW cost kernels, go, phase by
-phase, on the card.
+kernels, of the DBA-update and squared-DTW cost kernels, and of the vector
+solve go, phase by phase, on the card.
 
 Run from the repository root on a machine with an NVIDIA GPU and nvcc::
 
     python3 -m bayesian_ensembling_tpu_torch.utils.linalg_phase_clocks [--sizes 165 128 86]
-        [--threads 256 512] [--only linalg|dtw]
+        [--threads 256 512] [--only linalg|dtw|solve_vec]
 
 For a card whose profilers (ncu, nsys) are out of reach, the kernels carry
 ``BET_PHASE_CLOCK()`` marks that compile to nothing in the library's own
@@ -32,6 +32,15 @@ from the corner and the row sums with their stores (the fused kernel) or the
 store (the cost kernel); beside them the cycles of a wavefront step and of a
 move of the walk.  Each result is checked bit for bit against the plain
 version.
+
+``--only solve_vec`` builds ``csrc/solve_vec.cu`` the same way and launches
+it at B = 16 (B = 28 past T = 1,000), full and forward-only, for T in
+``--sizes``: in the resident layout the wait for panel 0's rows, then each
+forward panel (the chain and the rows below) and each backward panel; in
+the streamed layout the solver warp's stalls (waiting for the dot products
+or the ring) and its chains, per pass.  Each result is checked against the
+plain version, the forward-only z and logdet bit for bit against the full
+launch's.
 """
 
 from __future__ import annotations
@@ -48,7 +57,7 @@ from bayesian_ensembling_tpu_torch import _build
 
 # source stem -> (pointer arguments, int arguments)
 KERNELS = {"chol": (2, 2), "chol_solve": (6, 2), "tri_inv": (2, 2), "dba_update": (4, 4),
-           "dtw_cost": (3, 4)}
+           "dtw_cost": (3, 4), "solve_vec": (5, 3)}
 
 
 def build(name, threads):
@@ -149,12 +158,57 @@ def dtw_clocks(sizes):
     return ok
 
 
+def solve_vec_clocks(sizes):
+    """Phases of the vector solve's block 0 at B = 16 (B = 28 past T = 1000),
+    full and forward-only, each checked against the plain version (the
+    forward-only z and logdet bit for bit against the full launch's)."""
+    from bayesian_ensembling_tpu_torch.ops import linalg_cuda as lc
+
+    lib, notes = build("solve_vec", 0)
+    print("solve_vec:", "; ".join(notes))
+    ok = True
+    for dtype, sfx in ((torch.float32, "f32"), (torch.float64, "f64")):
+        tol = 1e-3 if dtype == torch.float32 else 1e-10
+        for t in sizes:
+            layout = lc._solve_vec_layout(t, dtype)
+            b = 28 if t > 1000 else 16
+            rng = np.random.default_rng(t)
+            l = torch.linalg.cholesky(torch.from_numpy(make_spd(rng, b, t))).to("cuda", dtype).contiguous()
+            y = torch.from_numpy(rng.normal(size=(b, t))).to("cuda", dtype)
+            want = lc.solve_vec_reference(l, y)
+            flags = 2 if layout == "streamed" else 0
+            out = {}
+            for fwd in (0, 1):
+                z, alpha = torch.empty_like(y), torch.empty_like(y)
+                logdet = torch.empty(b, device="cuda", dtype=dtype)
+                d = launch(lib, f"bet_solve_vec_{sfx}", l.data_ptr(), y.data_ptr(), z.data_ptr(),
+                           alpha.data_ptr(), logdet.data_ptr(), b, t, flags | fwd)
+                out[fwd] = (z, alpha, logdet, d)
+            z, alpha, logdet, d = out[0]
+            err = max(rel(g, w) for g, w in zip((z, alpha, logdet), want))
+            same = torch.equal(out[1][0], z) and torch.equal(out[1][2], logdet)
+            ok &= err < tol and same
+            np_ = -(-t // 32)
+            head = (f"{sfx} B={b} T={t} solve_vec {layout}: {sum(d)} cycles (forward-only {sum(out[1][3])}); "
+                    f"rel err {err:.1e}; forward-only equal {same}")
+            if layout == "resident":
+                fwd, bwd = d[1:1 + np_], d[1 + np_:]
+                print(f"{head}\n    load wait {d[0]}; forward panels {fwd} ({sum(fwd) / t:.1f} cycles an "
+                      f"unknown); backward panels {bwd} ({sum(bwd) / t:.1f} an unknown)")
+            else:
+                stalls, chains_ = d[0::2], d[1::2]
+                print(f"{head}\n    forward: stalls {sum(stalls[:np_])} (first {stalls[0]}), chains "
+                      f"{sum(chains_[:np_])} ({sum(chains_[:np_]) / t:.1f} a link); backward: stalls "
+                      f"{sum(stalls[np_:])}, chains {sum(chains_[np_:])}; marks recorded {len(d)}")
+    return ok
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--sizes", type=int, nargs="+", default=[165, 128, 86], help="T of the matrices")
     parser.add_argument("--threads", type=int, nargs="+", default=[256],
                         help="block sizes of the two Cholesky kernels")
-    parser.add_argument("--only", choices=["linalg", "dtw"], help="one family of kernels")
+    parser.add_argument("--only", choices=["linalg", "dtw", "solve_vec"], help="one family of kernels")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("needs an NVIDIA GPU", file=sys.stderr)
@@ -162,6 +216,8 @@ def main(argv=None):
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
     ok = True
+    if args.only == "solve_vec":
+        return 0 if solve_vec_clocks(args.sizes) else 1
     if args.only != "linalg":
         ok &= dtw_clocks(args.sizes)
     if args.only == "dtw":

@@ -21,19 +21,22 @@ Phases, in order; any failure exits non-zero:
    T = 165 in float64 too, each beside ``solve_triangular``), and one
    non-positive-definite input that must come back NaN; then the monthly
    path's kernels: the split DBA update (exact, float32 and float64, at the
-   monthly collections' N and T = 1980 / 1032, and against the fused kernel
-   at T = 165), the Cholesky and the triangular inverse at the blocked NLML's
-   leaves (B = 65, T = 128; the Cholesky with a non-positive-definite
-   slot), the blocked NLML in float32 against
+   monthly collections' N and T = 1980 / 1032, with NaN pairs, and against
+   the fused kernel at T = 165), the Cholesky and the triangular inverse at
+   the blocked NLML's leaves (B = 65, T = 128; the Cholesky with a
+   non-positive-definite slot), the blocked NLML in float32 against
    torch.linalg in float64 (B = 65, T = 1032), and the route timings that
    the linalg_path thresholds are decided from; then the vector solve
    (given L: z, alpha, log-determinant) in float32 and float64 at the
    library path's shapes (B = 16, T = 165 and 86, where the Cholesky
-   kernel is held against its plain version too) and at the shapes where
+   kernel is held against its plain version too; B = 1, T = 165, the
+   launch of FullCovGaussian.log_prob) and at the shapes where
    the fused kernel and the library route do the same work today
    (B = 112, T = 165, where Cholesky + vector solve must also equal the
-   fused Cholesky-solve; B = 65, T = 1032; B = 28, T = 1980), with a zero
-   and a negative diagonal entry that must come through untrapped.
+   fused Cholesky-solve; B = 65, T = 1032; B = 28, T = 1980: the streamed
+   layout), each also as the forward-only launch the library's scores
+   make (z and the log-determinant bit for bit the full launch's), with a
+   zero and a negative diagonal entry that must come through untrapped.
 4. The slice: ``ensemble_multi_scenario_step`` on synthetic GMST-like inputs
    of the flagship shape (7 SSPs x 16 padded models x 29 ragged
    realisations, T = 165 / 86, 200 observation members), float32 on the card
@@ -150,7 +153,12 @@ PREVIOUS_MS = {("chol_solve", 112, 165): 0.0810, ("chol_solve", 112, 86): 0.0535
                ("dba_update", 112, 165): 0.0548, ("dba_update", 112, 86): 0.0385,
                ("dba_update", 3248, 165): 0.3447,
                ("dtw_cost", 3248, 165): 0.378, ("dtw_cost", 45472, 165): 4.997,
-               ("dtw_cost", 812, 1980): 5.681}
+               ("dtw_cost", 812, 1980): 5.681,
+               # L read from device memory in the chain, twice, one block a matrix
+               # (the vector solve, float32).
+               ("solve_vec", 16, 165): 0.0528, ("solve_vec", 16, 86): 0.0346,
+               ("solve_vec", 112, 165): 0.0532, ("solve_vec", 65, 1032): 0.4400,
+               ("solve_vec", 28, 1980): 1.0037}
 PREVIOUS_PEAK_GIB = 6.02
 
 
@@ -290,6 +298,12 @@ def _solve_vec_work(b, t, e=4):
     """The lower triangle of L and y read; z, alpha and log|LL^T| written;
     T^2 flops for each of the two substitutions."""
     return b * (t * (t + 1) // 2 + 3 * t + 1) * e, b * 2 * t * t
+
+
+def _solve_vec_forward_work(b, t, e=4):
+    """The forward-only launch: the lower triangle of L and y read; z and
+    log|LL^T| written; T^2 flops for the one substitution."""
+    return b * (t * (t + 1) // 2 + 2 * t + 1) * e, b * t * t
 
 
 def _matern_spd(torch, x, noise, dev):
@@ -442,6 +456,7 @@ def check_solve_vec(torch, inputs, pack, dev, report):
     cases = [  # (what runs at this shape, realisation block (B, R, T))
         ("library path, one scenario's hist", hb[0]),
         ("library path, one scenario's ssp", sb[0]),
+        ("log_prob of one vector", hb[0, :1]),
         ("annual step's hist batch", hb.reshape(S * M, R, -1)),
         ("monthly ssp batch", pack.usb),
         ("monthly hist chunk", uh[:HIST_CHUNK]),
@@ -488,13 +503,25 @@ def check_solve_vec(torch, inputs, pack, dev, report):
             lib_ms = _cuda_ms(torch, two_solves, reps)
             work = _solve_vec_work(b, t, l.element_size())
             bound_ms, bound_by = _bound(*work)
-            log(f"  solve_vec {label} B={b} T={t} {str(dtype)[6:]}: rel err (z, alpha, logdet) = "
-                + ", ".join(f"{e:.2e}" for e in rels) + f" (tol {LINALG_TOL}); kernel {ms:.4f} ms, "
+            tol = LINALG_TOL if dtype == torch.float32 else LINALG_TOL_F64
+            log(f"  solve_vec {label} B={b} T={t} {str(dtype)[6:]} ({lc._solve_vec_layout(t, dtype)}): "
+                "rel err (z, alpha, logdet) = " + ", ".join(f"{e:.2e}" for e in rels)
+                + f" (tol {tol}); kernel {ms:.4f} ms{_previous(('solve_vec', b, t)) if tol == LINALG_TOL else ''}, "
                 f"plain {plain_ms:.4f} ms, two solve_triangular {lib_ms:.4f} ms, bound "
                 f"{bound_ms:.5f} ms ({bound_by})")
-            ok &= max(rels) < LINALG_TOL
+            ok &= max(rels) < tol
             row = dict(t=t, b=b, err=err, ms=ms, plain_ms=plain_ms, work=work, library_ms=lib_ms)
             report["solve_vec" if dtype == torch.float32 else "solve_vec_f64"].append(row)
+            # The forward-only launch (the library's scores): z and logdet
+            # bit for bit the full launch's.
+            fwd = lc.solve_vec_forward(l, y)
+            torch.cuda.synchronize()
+            same = torch.equal(fwd[0], got[0]) and torch.equal(fwd[1], got[2])
+            ms_fwd = _cuda_ms(torch, lambda: lc.solve_vec_forward(l, y), reps)
+            bound_fwd = _bound(*_solve_vec_forward_work(b, t, l.element_size()))[0]
+            log(f"  solve_vec forward-only {label} B={b} T={t} {str(dtype)[6:]}: z and logdet equal the "
+                f"full launch's: {same}; kernel {ms_fwd:.4f} ms, bound {bound_fwd:.5f} ms")
+            ok &= same
             if (b, t) == (S * M, T_HIST):
                 composed = lc.chol_solve_composed(ky, y)
                 fused = lc.chol_solve(ky, y)
@@ -712,6 +739,22 @@ def check_monthly_kernels(torch, pack, dev, report):
         log(f"  dba_update_split N={n} T={t} ({name}) f64: exact={exact64} kernel {ms:.3f} ms")
         ok &= exact64
         del c64, s64, got, want
+        # NaN pairs: in row 0 of one centre (the walk leaves the matrix at
+        # (0, T-1) and ends there), in one series, in the middle of another
+        # centre; equal to the plain version, NaN for NaN.
+        c_nan, s_nan = centers[:16].clone(), series[:16].clone()
+        c_nan[1, 0] = float("nan")
+        s_nan[7, t // 3] = float("nan")
+        c_nan[9, t // 2] = float("nan")
+        got = dtw_cuda.dba_update_batch(c_nan, s_nan)
+        want = dtw_cuda.dba_update_batch_reference(c_nan, s_nan)
+        torch.cuda.synchronize()
+        nan_ok = (torch.equal(got[1], want[1]) and torch.equal(got[0].isnan(), want[0].isnan())
+                  and torch.equal(got[0].nan_to_num(), want[0].nan_to_num()))
+        log(f"  dba_update_split N=16 T={t} ({name}) with NaN pairs: equal to plain, NaN for NaN: "
+            f"{nan_ok}")
+        ok &= nan_ok
+        del c_nan, s_nan, got, want
         torch.cuda.empty_cache()
 
     # Past the cap of byte-wide codes the fused kernel takes T = 720; impl="auto"

@@ -112,7 +112,8 @@ def unpack(words, i, j, band=BAND):
 def traceback(words, series, band=BAND):
     """The first warp's walk from the corner on 32-word tiles of one band,
     reloaded when the path leaves the tile's band or its columns; sums in
-    the plain version's order.  Returns (sums, counts, tile loads)."""
+    the plain version's order.  A move out of the matrix ends the path.
+    Returns (sums, counts, tile loads)."""
     t = series.shape[0]
     add = (lambda a, b: np.float32(a) + np.float32(b)) if series.dtype == torch.float32 else (
         lambda a, b: float(a) + float(b))
@@ -127,18 +128,17 @@ def traceback(words, series, band=BAND):
             staged = range(tile_lo, jj + 1)
         assert jj in staged and jj - tile_lo < TILE
         code = unpack(words, ii, jj, band)
-        if ii == 0:
-            code = 1
-        elif jj == 0:
-            code = 2
-        ni = ii - (code != 1)
-        jj -= code != 2
+        up, left = code != 1, code != 2
+        if (up and ii == 0) or (left and jj == 0):
+            break  # the path leaves the matrix (after a NaN): it ends here
+        ni = ii - up
+        jj -= left
         if ni != ii:
             out_s[ii], out_c[ii] = acc, cnt
             acc, cnt, ii = 0.0, 0.0, ni
         acc = add(acc, s[jj])
         cnt += 1.0
-    out_s[0], out_c[0] = acc, cnt
+    out_s[ii], out_c[ii] = acc, cnt  # rows above ii were never reached: 0
     return (torch.tensor(np.array(out_s, dtype=np.float64), dtype=series.dtype),
             torch.tensor(out_c, dtype=series.dtype), loads)
 
@@ -203,6 +203,55 @@ def test_wavefront_dba_equals_jax_split_kernel(pallas_interpret, t):
     want_s, want_c = jdp.dba_update_batch(jnp.asarray(c.numpy()), jnp.asarray(s.numpy()), impl="split")
     np.testing.assert_array_equal(got_c.numpy(), np.asarray(want_c))
     np.testing.assert_array_equal(got_s.numpy(), np.asarray(want_s))
+
+
+def nan_pairs(t, dtype=torch.float64):
+    """``pairs(t)`` with NaNs: in row 0 of pair 1's centre (every cell is
+    NaN, the walk climbs the last column and leaves the matrix at
+    (0, T-1)), in pair 2's series and in the middle of pair 3's centre."""
+    c, s = pairs(t, dtype=dtype)
+    c[1, 0] = float("nan")
+    s[2, t // 3] = float("nan")
+    c[3, t // 2] = float("nan")
+    return c, s
+
+
+def assert_equal_nan(got, want):
+    assert torch.equal(got.isnan(), want.isnan())
+    assert torch.equal(got.nan_to_num(), want.nan_to_num())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("band,warp", [(BAND, WARP), (16, 2)])
+@pytest.mark.parametrize("t", [9, 33, 100, 165])
+def test_wavefront_dba_after_a_nan_ends_the_path_as_plain(t, band, warp, dtype):
+    """After a NaN the walk meets a move out of the matrix and ends there,
+    as the plain version's sweep does: sums and counts equal, NaN for NaN,
+    rows the path never reached 0.  Forcing left in row 0 instead, as the
+    kernel once did, counts all T cells of pair 1's row 0."""
+    c, s = nan_pairs(t, dtype)
+    got_s, got_c, _, _ = wavefront_dba(c, s, band, warp)
+    want_s, want_c = dtw_cuda.dba_update_batch_reference(c, s)
+    assert torch.equal(got_c, want_c)
+    assert_equal_nan(got_s, want_s)
+    assert torch.equal(got_c[1], torch.ones(t, dtype=dtype))
+
+
+@pytest.mark.parametrize("t", [9, 33, 100])
+def test_wavefront_dba_after_a_nan_equals_jax_split_kernel(pallas_interpret, t):
+    """The same NaN case against the JAX split kernel pair in Pallas
+    interpret mode, float64, bit for bit, on the pairs whose NaN is in the
+    centre.  (A NaN in a series makes sums and counts of that pair NaN in
+    some rows in the TPU kernels, which weigh the series by the path's mask;
+    the plain version and the port skip the cells off the path.)"""
+    c, s = nan_pairs(t)
+    got_s, got_c, _, _ = wavefront_dba(c, s)
+    want_s, want_c = (torch.from_numpy(np.array(a)) for a in jdp.dba_update_batch(
+        jnp.asarray(c.numpy()), jnp.asarray(s.numpy()), impl="split"))
+    keep = [0, 1, 3]
+    assert torch.equal(got_c[keep], want_c[keep])
+    assert_equal_nan(got_s[keep], want_s[keep])
+    assert want_c[2].isnan().any()
 
 
 @pytest.mark.parametrize("t,pairs_,gib", [(1980, 812, 0.75), (1032, 1885, 0.5)])

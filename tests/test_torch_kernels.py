@@ -217,6 +217,29 @@ def test_dba_update_split_kernel_matches_plain(cuda_device, t, dtype):
         assert torch.equal(fused[0], got_s) and torch.equal(fused[1], got_c)
 
 
+@pytest.mark.parametrize("t", [2, 33, 165, 1032, 2049])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_dba_update_split_kernel_after_a_nan(cuda_device, t, dtype):
+    """A NaN in row 0 of one centre (the walk leaves the matrix at
+    (0, T-1) and ends there), in one series and in the middle of another
+    centre: sums and counts equal the plain version's, NaN for NaN, and
+    equal the fused kernel's where it fits."""
+    c, s = _dba_pairs(16, t, dtype, cuda_device)
+    c[1, 0] = float("nan")
+    s[7, t // 3] = float("nan")
+    c[9, t // 2] = float("nan")
+    got_s, got_c = dtw_cuda.dba_update_batch(c, s, impl="split")
+    want_s, want_c = dtw_cuda.dba_update_batch_reference(c, s)
+    torch.cuda.synchronize()
+    assert torch.equal(got_c, want_c)
+    assert torch.equal(got_s.isnan(), want_s.isnan())
+    assert torch.equal(got_s.nan_to_num(), want_s.nan_to_num())
+    assert torch.equal(got_c[1], torch.ones(t, dtype=dtype, device=cuda_device))
+    if dtw_cuda.fused_dba_fits(t, dtype):
+        fused_s, fused_c = dtw_cuda.dba_update_batch(c, s, impl="fused")
+        assert torch.equal(fused_c, got_c) and torch.equal(fused_s.nan_to_num(), got_s.nan_to_num())
+
+
 def test_dba_update_split_chunks_its_scratch(cuda_device, monkeypatch):
     t = 40
     monkeypatch.setattr(dtw_cuda, "SPLIT_SCRATCH_BYTES", 3 * dtw_cuda._split_scratch_bytes(t))
@@ -421,6 +444,107 @@ def test_solve_vec_kernel_bad_diagonal_is_not_trapped(cuda_device):
     z_ref, _, ld_ref = tlc.solve_vec_reference(l_t, y)
     assert ld_ref[1] == -float("inf") and torch.isnan(ld_ref[2])
     assert rel_err(z[[0, 2, 3]], z_ref[[0, 2, 3]]) < 1e-3
+
+
+def _solve_vec_inputs(b, t, dtype, device, seed=0):
+    rng = np.random.default_rng(300 + 7 * t + seed)
+    l = np.linalg.cholesky(make_spd(rng, b, t))
+    y = rng.normal(size=(b, t))
+    return (torch.from_numpy(l).to(device, dtype).contiguous(),
+            torch.from_numpy(y).to(device, dtype))
+
+
+def _force_layout(monkeypatch, layout):
+    """The wrapper picks the layout from SOLVE_VEC_RESIDENT_T_CAP: 0 sends
+    every T to the streamed layout."""
+    if layout == "streamed":
+        monkeypatch.setattr(tlc, "SOLVE_VEC_RESIDENT_T_CAP", {torch.float32: 0, torch.float64: 0})
+
+
+# Panel edges (31 / 32 / 33), the library's T = 86 / 165, the resident caps
+# and one past them, and the monthly T; the streamed layout at every size,
+# so that its single-chunk, ragged and multi-chunk panels all run.
+SOLVE_VEC_SIZES = [1, 2, 31, 32, 33, 86, 165, "cap", "cap+1", 1032]
+
+
+@pytest.mark.parametrize("layout", ["auto", "streamed"])
+@pytest.mark.parametrize("b", [1, 16])
+@pytest.mark.parametrize("t", SOLVE_VEC_SIZES)
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-3), (torch.float64, 1e-10)])
+def test_solve_vec_kernel_layouts_and_forward_only(cuda_device, monkeypatch, layout, b, t, dtype, tol):
+    """Both layouts against the plain version; the forward-only launch's z
+    and logdet equal the full launch's bit for bit; one launch each."""
+    cap = tlc.SOLVE_VEC_RESIDENT_T_CAP[dtype]
+    t = {"cap": cap, "cap+1": cap + 1}.get(t, t)
+    _force_layout(monkeypatch, layout)
+    l, y = _solve_vec_inputs(b, t, dtype, cuda_device)
+    reset_launch_counts()
+    got = tlc.solve_vec(l, y)
+    fwd = tlc.solve_vec_forward(l, y)
+    assert launch_counts()["solve_vec"] == 2
+    want = tlc.solve_vec_reference(l, y)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and rel_err(g, w) < tol
+    assert torch.equal(fwd[0], got[0]) and torch.equal(fwd[1], got[2])
+
+
+@pytest.mark.parametrize("b,t", [(2, 1980), (1, 4500)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-3), (torch.float64, 1e-10)])
+def test_solve_vec_kernel_streams_large_t(cuda_device, b, t, dtype, tol):
+    """Past the resident cap: the monthly T = 1980 and 4,500 (141 panels,
+    the ring turned over many times)."""
+    l, y = _solve_vec_inputs(b, t, dtype, cuda_device)
+    got = tlc.solve_vec(l, y)
+    fwd = tlc.solve_vec_forward(l, y)
+    want = tlc.solve_vec_reference(l, y)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert rel_err(g, w) < tol
+    assert torch.equal(fwd[0], got[0]) and torch.equal(fwd[1], got[2])
+
+
+@pytest.mark.parametrize("layout", ["auto", "streamed"])
+@pytest.mark.parametrize("t", [40, 165])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_solve_vec_kernel_bad_diagonal_both_layouts(cuda_device, monkeypatch, layout, t, dtype):
+    """A zero diagonal entry (first and a middle panel), a negative one (the
+    last row) and a NaN one: inf / NaN in z and alpha and -inf / NaN in
+    logdet of that matrix only, as the plain version; forward-only alike."""
+    _force_layout(monkeypatch, layout)
+    l, y = _solve_vec_inputs(6, t, dtype, cuda_device, seed=1)
+    l[1, 3, 3] = 0.0
+    l[2, t // 2, t // 2] = 0.0
+    l[3, t - 1, t - 1] = -1.0
+    l[4, 10, 10] = float("nan")
+    z, alpha, logdet = tlc.solve_vec(l, y)
+    fz, flogdet = tlc.solve_vec_forward(l, y)
+    z_ref, alpha_ref, ld_ref = tlc.solve_vec_reference(l, y)
+    torch.cuda.synchronize()
+    for i in (1, 2):
+        assert logdet[i] == -float("inf") and ld_ref[i] == -float("inf")
+        assert not torch.isfinite(z[i]).all() and not torch.isfinite(alpha[i]).all()
+        assert torch.isfinite(z[i, :3 if i == 1 else t // 2]).all()
+    assert torch.isnan(logdet[3]) and torch.isnan(ld_ref[3]) and torch.isfinite(z[3]).all()
+    assert torch.isnan(logdet[4]) and torch.isnan(z[4, 10:]).all() and torch.isfinite(z[4, :10]).all()
+    for out in (z, alpha, logdet):
+        assert torch.isfinite(out[[0, 5]]).all()
+    tol = 1e-3 if dtype == torch.float32 else 1e-10
+    assert rel_err(z[[0, 3, 5]], z_ref[[0, 3, 5]]) < tol
+    assert rel_err(alpha[[0, 3, 5]], alpha_ref[[0, 3, 5]]) < tol
+    assert torch.equal(fz.nan_to_num(), z.nan_to_num()) and torch.equal(flogdet.isnan(), logdet.isnan())
+
+
+def test_solve_vec_kernel_refuses_a_layout_that_does_not_fit(cuda_device, monkeypatch):
+    """The resident layout one past its cap does not fit a block's shared
+    memory: the launch raises (nothing falls back)."""
+    caps = dict(tlc.SOLVE_VEC_RESIDENT_T_CAP)
+    for dtype in (torch.float32, torch.float64):
+        cap = caps[dtype]
+        monkeypatch.setattr(tlc, "SOLVE_VEC_RESIDENT_T_CAP", {dtype: cap + 1})
+        l, y = _solve_vec_inputs(1, cap + 1, dtype, cuda_device)
+        with pytest.raises(RuntimeError, match="launch failed"):
+            tlc.solve_vec(l, y)
 
 
 def test_library_builds_for_sm90a(cuda_device):

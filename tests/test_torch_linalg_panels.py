@@ -396,3 +396,313 @@ def test_spread_hook_and_backward_update_cover_their_work_once(t):
                       for g0 in range(warp * 8, k0 // vec, CHOL_WARPS * 8)
                       for lane in range(8)]
             assert sorted(groups) == list(range(k0 // vec)) and k0 // vec % 8 == 0
+
+
+# ------------------------------------------------- the vector solve (B5)
+# csrc/solve_vec.cu: the resident layout (the packed lower triangle in
+# shared memory, one solver warp sweeping the columns with each panel's rows
+# scaled by the reciprocal of their diagonal, late panels catching up) and
+# the streamed layout (32-row panels in chunks of W columns through a ring,
+# forward top-down, backward bottom-up, a solver warp on each diagonal
+# block).  In both models an entry the kernel never copies is NaN, so a
+# schedule that read one would fail.
+SOLVE_VEC_SIZES = [1, 31, 32, 33, 86, 165]
+SOLVE_VEC_STAGES = 6  # csrc/solve_vec.cu: kStages
+
+
+def packed_triangle(l):
+    """Rows of the lower triangle one after the other: row i at i (i+1)/2."""
+    t = l.shape[-1]
+    i, c = torch.tril_indices(t, t)
+    return l[:, i, c]
+
+
+def resident_solve_vec(l, y, forward_only=False, reads=None):
+    """The resident layout.  Forward, per panel: the solver warp's shuffle
+    chain on the panel's rows scaled by 1 / L_ii (the right-hand sides
+    minus the sums so far), then every row below the panel adds its 32
+    terms; backward, per panel from the last: the chain on the panel's
+    columns, then every column left of it subtracts its 32 terms.
+    ``reads`` (a list of two int tensors) counts each pass's reads of every
+    packed entry.  Returns (z, alpha or None, logdet)."""
+    b, t = y.shape
+    np_ = -(-t // PANEL)
+    tri = packed_triangle(l)
+    row = lambda i: i * (i + 1) // 2  # noqa: E731
+    reads = reads if reads is not None else [torch.zeros(tri.shape[1], dtype=torch.int64) for _ in range(2)]
+
+    def get(idx, pass_):
+        reads[pass_][torch.tensor(idx, dtype=torch.int64)] += 1
+        return tri[:, idx]
+
+    diag = get([row(i) + i for i in range(t)], 0)
+    rinv = 1.0 / diag
+    logdet = 2.0 * torch.log(diag).sum(-1)
+    v = y.clone()
+    dot = torch.zeros_like(y)
+    for p in range(np_):
+        j0 = PANEL * p
+        n = min(PANEL, t - j0)
+        cur = (v[:, j0:j0 + n] - dot[:, j0:j0 + n]) * rinv[:, j0:j0 + n]
+        for cc in range(n):
+            below = list(range(cc + 1, n))
+            if below:
+                lv = get([row(j0 + r) + j0 + cc for r in below], 0) * rinv[:, [j0 + r for r in below]]
+                cur[:, below] -= lv * cur[:, cc, None]
+        v[:, j0:j0 + n] = cur
+        rest = list(range(j0 + PANEL, t))
+        if rest:  # the rows below, a thread a row
+            idx = torch.tensor([[row(i) + j0 + cc for cc in range(n)] for i in rest])
+            get(idx.reshape(-1).tolist(), 0)
+            dot[:, rest] += torch.einsum("bic,bc->bi", tri[:, idx], cur)
+    z = v.clone()
+    if forward_only:
+        return z, None, logdet
+    for p in range(np_ - 1, -1, -1):
+        j0 = PANEL * p
+        n = min(PANEL, t - j0)
+        cur = v[:, j0:j0 + n] * rinv[:, j0:j0 + n]
+        for cc in range(n - 1, -1, -1):
+            if cc:
+                lv = get([row(j0 + cc) + j0 + r for r in range(cc)], 1) * rinv[:, j0:j0 + cc]
+                cur[:, :cc] -= lv * cur[:, cc, None]
+        v[:, j0:j0 + n] = cur
+        if j0:  # the columns left, a thread a column
+            idx = torch.tensor([[row(j0 + r) + c for r in range(n)] for c in range(j0)])
+            get(idx.reshape(-1).tolist(), 1)
+            v[:, :j0] -= torch.einsum("bcr,br->bc", tri[:, idx], cur)
+    return z, v, logdet
+
+
+def chunk_order(t, w, backward_too=True):
+    """``for_each_chunk`` of csrc/solve_vec.cu: (panel, chunk, diagonal,
+    backward) in the one order producer, consumers and solver follow."""
+    np_ = -(-t // PANEL)
+    out = [(p, q, q == PANEL * p // w, False) for p in range(np_) for q in range(PANEL * p // w + 1)]
+    if backward_too:
+        out += [(p, q, q == PANEL * p // w, True) for p in range(np_ - 1, -1, -1)
+                for q in range(PANEL * p // w, -1, -1)]
+    return out
+
+
+def stage_of(l, p, q, w):
+    """The chunk as the producers copy it: rows j0 .. j0+31 below T, columns
+    [q w, q w + w) on or below the diagonal; every other entry NaN."""
+    b, t, _ = l.shape
+    j0 = PANEL * p
+    st = torch.full((b, PANEL, w), NAN, dtype=l.dtype)
+    for r in range(min(PANEL, t - j0)):
+        hi = min(w, j0 + r + 1 - q * w)
+        if hi > 0:
+            st[:, r, :hi] = l[:, j0 + r, q * w:q * w + hi]
+    return st
+
+
+def streamed_solve_vec(l, y, w, forward_only=False):
+    """The streamed layout: consumers take the columns of a chunk below its
+    panel's diagonal block (forward: 32 running dot products a column,
+    summed at the panel's end; backward: v_c -= sum_r L[j0+r, c] alpha_r),
+    the solver the diagonal block, scaled by the reciprocals.  One vector v
+    holds z, then z minus the backward sums, then alpha."""
+    b, t = y.shape
+    v = torch.full((b, t), NAN, dtype=y.dtype)
+    acc = torch.zeros((b, PANEL, w), dtype=y.dtype)
+    logdet = torch.zeros(b, dtype=y.dtype)
+    z = None
+    for p, q, diag, backward in chunk_order(t, w, not forward_only):
+        j0 = PANEL * p
+        n = min(PANEL, t - j0)
+        st = stage_of(l, p, q, w)
+        cols = [c for c in range(q * w, q * w + w) if c < j0]  # the consumers' columns
+        off = [c - q * w for c in cols]
+        if not backward:
+            if cols:
+                acc[:, :, off] += st[:, :, off] * v[:, None, cols]
+            if not diag:
+                continue
+            rhs = y[:, j0:j0 + n] - acc.sum(-1)[:, :n]  # the consumers' sums; rows past T unused
+            acc.zero_()
+            block = st[:, :n, j0 - q * w:j0 - q * w + n]
+            d = torch.diagonal(block, dim1=-2, dim2=-1)
+            rinv = 1.0 / d
+            logdet += torch.log(d).sum(-1)
+            cur = rhs * rinv
+            for cc in range(n):
+                cur[:, cc + 1:] -= block[:, cc + 1:, cc] * rinv[:, cc + 1:] * cur[:, cc, None]
+            v[:, j0:j0 + n] = cur
+            if p == -(-t // PANEL) - 1:
+                z = v.clone()
+            continue
+        if diag:
+            block = st[:, :n, j0 - q * w:j0 - q * w + n]
+            rinv = 1.0 / torch.diagonal(block, dim1=-2, dim2=-1)
+            cur = v[:, j0:j0 + n] * rinv
+            for cc in range(n - 1, -1, -1):
+                cur[:, :cc] -= block[:, cc, :cc] * rinv[:, :cc] * cur[:, cc, None]
+            v[:, j0:j0 + n] = cur
+        if cols:
+            alpha = v[:, j0:j0 + n]
+            v[:, cols] -= torch.einsum("brc,br->bc", st[:, :n][:, :, off], alpha)
+    return z, None if forward_only else v, 2.0 * logdet
+
+
+def model_solve_vec(l, y, forward_only=False):
+    """The launcher's choice of layout, as ``linalg_cuda`` makes it."""
+    if tlc._solve_vec_layout(y.shape[1], y.dtype) == "resident":
+        return resident_solve_vec(l, y, forward_only)
+    return streamed_solve_vec(l, y, tlc._solve_vec_chunk_width(y.element_size()), forward_only)
+
+
+def factors_and_rhs(t, b=3, seed=0):
+    rng = np.random.default_rng(2000 + t + seed)
+    return (torch.from_numpy(np.linalg.cholesky(make_spd(rng, b, t))),
+            torch.from_numpy(rng.normal(size=(b, t))))
+
+
+@pytest.fixture
+def pallas_interpret(monkeypatch):
+    monkeypatch.setattr(jlp, "INTERPRET", True)
+
+
+def jax_solve_vec(l, y):
+    """The JAX package's Pallas vector solve, (B, T) outputs."""
+    z, alpha, logdet = jlp._solve_vec_batched_tpu(jnp.asarray(l.numpy().transpose(2, 1, 0)),
+                                                  jnp.asarray(y.numpy().T))
+    return np.asarray(z).T, np.asarray(alpha).T, np.asarray(logdet)
+
+
+@pytest.mark.parametrize("t", SOLVE_VEC_SIZES)
+def test_resident_solve_vec_matches_jax_and_plain(pallas_interpret, t):
+    l, y = factors_and_rhs(t)
+    got = resident_solve_vec(l, y)
+    for g, wj, wp in zip(got, jax_solve_vec(l, y), tlc.solve_vec_reference(l, y)):
+        close(g.numpy(), wj)
+        close(g.numpy(), wp.numpy())
+
+
+@pytest.mark.parametrize("t", [1, 31, 33, 86, 165])
+def test_resident_reads_every_packed_entry_once_a_pass(t):
+    """The packed offsets i (i+1) / 2 + c of the chains and the updates:
+    the forward pass reads every entry of the lower triangle once (the
+    diagonal for the reciprocals), the backward pass every entry below the
+    diagonal once (the reciprocals are reused)."""
+    l, y = factors_and_rhs(t, b=1)
+    reads = [torch.zeros(t * (t + 1) // 2, dtype=torch.int64) for _ in range(2)]
+    resident_solve_vec(l, y, reads=reads)
+    i, c = torch.tril_indices(t, t)
+    assert bool((reads[0] == 1).all())
+    assert bool((reads[1] == (i != c).long()).all())
+
+
+@pytest.mark.parametrize("w", [32, 64, 128])
+@pytest.mark.parametrize("t", SOLVE_VEC_SIZES + [300])
+def test_streamed_solve_vec_matches_jax_and_plain(pallas_interpret, t, w):
+    """Chunks of 128 (float32) and 64 (float64) columns, and of 32 so that
+    small T has panels of several chunks."""
+    l, y = factors_and_rhs(t)
+    got = streamed_solve_vec(l, y, w)
+    want_jax = jax_solve_vec(l, y) if w == 64 else None
+    for i, (g, wp) in enumerate(zip(got, tlc.solve_vec_reference(l, y))):
+        close(g.numpy(), wp.numpy())
+        if want_jax is not None:
+            close(g.numpy(), want_jax[i])
+
+
+@pytest.mark.parametrize("w", [32, 64, 128])
+@pytest.mark.parametrize("t", [1, 33, 165, 300, 1032])
+def test_streamed_chunk_order_serves_each_pass(t, w):
+    """Each chunk once a pass; forward panels top-down, each ending on its
+    diagonal block; backward panels bottom-up, each starting on it; every
+    chunk a forward consumer reads needs only unknowns of earlier panels,
+    and the chunk that completes the next backward panel's right-hand side
+    (the one holding column j0 - 1) comes before that panel's diagonal."""
+    order = chunk_order(t, w)
+    np_ = -(-t // PANEL)
+    fwd, bwd = order[:len(order) // 2], order[len(order) // 2:]
+    assert [(p, q) for p, q, _, _ in fwd] == sorted((p, q) for p, q, _, _ in bwd)
+    assert [p for p, _, d, _ in fwd if d] == list(range(np_))
+    assert [p for p, _, d, _ in bwd if d] == list(range(np_ - 1, -1, -1))
+    for p, q, diag, _ in fwd:
+        assert diag == (q == PANEL * p // w) and q * w < PANEL * p + PANEL
+    for p in range(1, np_):
+        hand = bwd.index((p, (PANEL * p - 1) // w, (PANEL * p - 1) // w == PANEL * p // w, True))
+        assert hand < bwd.index((p - 1, PANEL * (p - 1) // w, True, True))
+    assert len(order) == 2 * sum(PANEL * p // w + 1 for p in range(np_))
+
+
+@pytest.mark.parametrize("t", [39, 40, 41])
+def test_layout_switch_at_the_resident_cap(pallas_interpret, monkeypatch, t):
+    """At the resident cap and one past it (the cap cut to 40 by
+    monkeypatch): the model takes the launcher's layout, and both equal the
+    JAX kernel and the plain version."""
+    monkeypatch.setattr(tlc, "SOLVE_VEC_RESIDENT_T_CAP", {torch.float64: 40})
+    assert tlc._solve_vec_layout(t, torch.float64) == ("resident" if t <= 40 else "streamed")
+    l, y = factors_and_rhs(t)
+    got = model_solve_vec(l, y)
+    for g, wj, wp in zip(got, jax_solve_vec(l, y), tlc.solve_vec_reference(l, y)):
+        close(g.numpy(), wj)
+        close(g.numpy(), wp.numpy())
+
+
+@pytest.mark.parametrize("t", [tlc.SOLVE_VEC_RESIDENT_T_CAP[torch.float64],
+                               tlc.SOLVE_VEC_RESIDENT_T_CAP[torch.float64] + 1])
+def test_layouts_at_the_float64_resident_cap(t):
+    """The real switch point in float64 (237 / 238), against the plain version."""
+    l, y = factors_and_rhs(t, b=2)
+    for g, wp in zip(model_solve_vec(l, y), tlc.solve_vec_reference(l, y)):
+        close(g.numpy(), wp.numpy())
+
+
+@pytest.mark.parametrize("layout", ["resident", "streamed"])
+def test_solve_vec_models_forward_only_is_the_full_forward(layout):
+    """Forward-only runs the same forward pass: z and logdet bit for bit."""
+    l, y = factors_and_rhs(165)
+    run = (lambda fo: resident_solve_vec(l, y, fo)) if layout == "resident" else (
+        lambda fo: streamed_solve_vec(l, y, 64, fo))
+    full, fwd = run(False), run(True)
+    assert fwd[1] is None
+    assert torch.equal(fwd[0], full[0]) and torch.equal(fwd[2], full[2])
+
+
+@pytest.mark.parametrize("layout", ["resident", "streamed"])
+def test_solve_vec_models_bad_diagonal_rule(layout):
+    """A zero diagonal entry: z and alpha non-finite from that row on,
+    logdet -inf; a negative one: logdet NaN, z finite; a NaN one: z NaN from
+    that row on; the other matrices equal the plain version."""
+    l, y = factors_and_rhs(70, b=5)
+    l[1, 40, 40] = 0.0
+    l[2, 69, 69] = -1.0
+    l[3, 5, 5] = NAN
+    z, alpha, logdet = (resident_solve_vec(l, y) if layout == "resident"
+                        else streamed_solve_vec(l, y, 32))
+    z_ref, alpha_ref, ld_ref = tlc.solve_vec_reference(l, y)
+    assert logdet[1] == -np.inf and ld_ref[1] == -np.inf
+    assert torch.isfinite(z[1, :40]).all() and not torch.isfinite(z[1, 40:]).any()
+    assert not torch.isfinite(alpha[1]).all()
+    assert torch.isnan(logdet[2]) and torch.isnan(ld_ref[2]) and torch.isfinite(z[2]).all()
+    assert torch.isnan(z[3, 5:]).all() and torch.isfinite(z[3, :5]).all() and torch.isnan(logdet[3])
+    for g, w_ in zip((z, alpha, logdet), (z_ref, alpha_ref, ld_ref)):
+        close(g[[0, 2, 4]].numpy() if g.dim() > 1 else g[[0, 4]].numpy(),
+              w_[[0, 2, 4]].numpy() if w_.dim() > 1 else w_[[0, 4]].numpy())
+
+
+@pytest.mark.parametrize("dtype,cap,width", [(torch.float32, 337, 128), (torch.float64, 237, 64)])
+def test_solve_vec_shared_memory_mirror_keeps_the_caps(dtype, cap, width):
+    """``_solve_vec_resident_smem_bytes`` is the resident launcher's request
+    (128 bytes of mbarriers, three vectors on 16 bytes, the packed triangle)
+    and ``_solve_vec_streamed_smem_bytes`` the streamed one's (six dense
+    stages of 32 rows of W values, 256 bytes of mbarriers and counters, two
+    panels' dot products, one vector); the resident cap covers the
+    library's T = 165 in both dtypes and fits the built loads a row (11 in
+    float32, 8 in float64); the streamed cap has not fallen below
+    28,496 / 13,968."""
+    e = dtype.itemsize
+    assert tlc._solve_vec_resident_smem_bytes(165, e) == 128 + 3 * -(-165 * e // 16) * 16 + e * 165 * 83
+    assert tlc._solve_vec_chunk_width(e) == width
+    assert tlc._solve_vec_streamed_smem_bytes(1980, e) == SOLVE_VEC_STAGES * 16384 + 256 + 2 * width * e + 1980 * e
+    assert tlc.SOLVE_VEC_RESIDENT_T_CAP[dtype] == cap
+    for fn, c in ((tlc._solve_vec_resident_smem_bytes, cap),
+                  (tlc._solve_vec_streamed_smem_bytes, tlc.SOLVE_VEC_T_CAP[dtype])):
+        assert fn(c, e) <= _build.SMEM_BYTES < fn(c + 1, e)
+    assert -(-cap // PANEL) <= (11 if e == 4 else 8)
+    assert tlc.SOLVE_VEC_T_CAP[dtype] >= (28_496 if e == 4 else 13_968)

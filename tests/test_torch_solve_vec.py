@@ -126,3 +126,45 @@ def test_shape_checks():
     with pytest.raises(ValueError, match=r"\(B, T\)"):
         tlc.solve_vec(torch.zeros((2, 3, 3)), torch.zeros((2, 4)))
     assert tlc.SOLVE_VEC_T_CAP[torch.float32] > 1980 and tlc.SOLVE_VEC_T_CAP[torch.float64] > 1980
+
+
+@pytest.mark.parametrize("b,t", [(4, 24), (1, 165), (3, 13)])
+def test_forward_only_entry_is_the_full_launch_forward(b, t):
+    """``solve_vec_forward`` returns the full call's z and logdet bit for
+    bit (the same kernel with its backward pass off on the card)."""
+    lt, y = factors(3 * t + b, b, t)
+    l = torch.from_numpy(lt).permute(2, 1, 0).contiguous()
+    yb = torch.from_numpy(y.T.copy())
+    z, alpha, logdet = tlc.solve_vec(l, yb)
+    fz, flogdet = tlc.solve_vec_forward(l, yb)
+    assert torch.equal(fz, z) and torch.equal(flogdet, logdet)
+    with pytest.raises(ValueError, match=r"\(B, T\)"):
+        tlc.solve_vec_forward(l, yb[:, :-1])
+    assert "solve_vec_forward" not in tlc.__all__
+
+
+def test_scores_take_the_forward_only_entry(monkeypatch):
+    """The callers that drop alpha (the full-covariance score and
+    ``FullCovGaussian.log_prob`` of one vector) never ask for it."""
+    from bayesian_ensembling_tpu_torch.ops import distributions, scoring
+
+    def full_solve(*_):
+        raise AssertionError("alpha asked for")
+
+    calls = []
+    forward = tlc.solve_vec_forward
+    monkeypatch.setattr(tlc, "solve_vec", full_solve)
+    monkeypatch.setattr(tlc, "solve_vec_forward", lambda l, y: calls.append(l.shape) or forward(l, y))
+    rng = np.random.default_rng(9)
+    k = make_spd(rng, 3, 12)
+    chol = torch.linalg.cholesky(torch.from_numpy(k))
+    mean = torch.from_numpy(rng.normal(size=(3, 12)))
+    obs = torch.from_numpy(rng.normal(size=(5, 12)))
+    ll = scoring.fullcov_constant_vector_log_likelihood(mean, chol, obs)
+    assert ll.shape == (3, 5, 12) and torch.isfinite(ll).all() and len(calls) == 2
+    dist = distributions.FullCovGaussian(mean[0], torch.from_numpy(k[0]))
+    lp = dist.log_prob(mean[0] + 0.1)
+    jittered = torch.from_numpy(k[0] + 1e-10 * np.eye(12))  # FullCovGaussian.chol's jitter
+    want = torch.distributions.MultivariateNormal(mean[0], jittered).log_prob(mean[0] + 0.1)
+    close(lp.numpy(), want.numpy())
+    assert len(calls) == 3
