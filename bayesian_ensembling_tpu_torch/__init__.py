@@ -8,7 +8,10 @@ version beside it, which runs when the tensors are on the CPU.
 
 Main entry points: the library API, ``ModelCollection([...]).fit(GPDTW1D())``
 -> a weighter -> ``Barycentre()``, and its one-call form
-:func:`pipeline.run_scenario`; :func:`ensemble_multi_scenario_step` (the
+:func:`pipeline.run_scenario`; its gridded counterpart, ``GPDTW3D`` and
+:func:`pipeline.run_gridded_scenario`, with the fused
+:func:`gridded_ensemble_step` (every (model, cell) fit in one batch);
+:func:`ensemble_multi_scenario_step` (the
 annual 7-SSP step; every DBA method, optimiser, fit route and weight kind
 of the JAX step), :func:`run_dedup_campaign` (the native-monthly campaign,
 each unique model fitted once) and :func:`refined_multi_scenario_f64` (the
@@ -24,6 +27,7 @@ from bayesian_ensembling_tpu_torch.convert import (
 )
 from bayesian_ensembling_tpu_torch.coords import DimArray
 from bayesian_ensembling_tpu_torch.data import ModelCollection, Posterior, ProcessModel
+from bayesian_ensembling_tpu_torch.models.gp_3d import GPDTW3D
 from bayesian_ensembling_tpu_torch.models.gp_dtw import (
     GPDTW1D,
     emulate_batch,
@@ -65,6 +69,13 @@ from bayesian_ensembling_tpu_torch.parallel.campaign import (
     pad_unique_axis,
     run_dedup_campaign,
 )
+from bayesian_ensembling_tpu_torch.parallel.gridded import (
+    coarse_warm_start,
+    gridded_ensemble_step,
+    gridded_tail,
+    pad_cells,
+    refined_gridded_f64,
+)
 from bayesian_ensembling_tpu_torch.parallel.step import (
     WEIGHT_KINDS,
     chunked_marginals,
@@ -76,7 +87,11 @@ from bayesian_ensembling_tpu_torch.parallel.step import (
     pad_models,
     refined_multi_scenario_f64,
 )
-from bayesian_ensembling_tpu_torch.pipeline import ScenarioResult, run_scenario
+from bayesian_ensembling_tpu_torch.pipeline import (
+    ScenarioResult,
+    run_gridded_scenario,
+    run_scenario,
+)
 from bayesian_ensembling_tpu_torch.schemes import Barycentre, MultiModelMean, WeightedModelMean
 from bayesian_ensembling_tpu_torch.weights import (
     AbstractWeight,
@@ -87,6 +102,9 @@ from bayesian_ensembling_tpu_torch.weights import (
     ModelSimilarityWeight,
     UniformWeight,
 )
+from bayesian_ensembling_tpu_torch.validation import load_model_collection
+
+__version__ = "0.1.0"
 
 __all__ = [
     "ops",
@@ -97,6 +115,7 @@ __all__ = [
     "CRPSWeight",
     "DimArray",
     "GPDTW1D",
+    "GPDTW3D",
     "InverseSquareWeight",
     "KSDWeight",
     "LogLikelihoodWeight",
@@ -115,14 +134,18 @@ __all__ = [
     "emulate_batch_chunked",
     "posterior_from_jax",
     "refine_posterior_f64",
+    "load_model_collection",
+    "run_gridded_scenario",
     "run_scenario",
     "solve_vec_batched",
+    "__version__",
     "BatchedGPParams",
     "DedupCampaign",
     "WEIGHT_KINDS",
     "cholesky_batched",
     "cholesky_solve_fused",
     "chunked_marginals",
+    "coarse_warm_start",
     "dba",
     "dba_batch",
     "dba_subgradient_batch",
@@ -138,6 +161,8 @@ __all__ = [
     "fused_raw_weights",
     "gp_params_from_jax",
     "gp_params_to_numpy",
+    "gridded_ensemble_step",
+    "gridded_tail",
     "init_params",
     "launch_counts",
     "linalg_path",
@@ -146,10 +171,12 @@ __all__ = [
     "nlml_terms",
     "nlml_terms_blocked",
     "pack_dedup_campaign",
+    "pad_cells",
     "pad_models",
     "pad_unique_axis",
     "posterior_marginals_batch",
     "prepare_gp_inputs",
+    "refined_gridded_f64",
     "refined_multi_scenario_f64",
     "reset_launch_counts",
     "route_counts",

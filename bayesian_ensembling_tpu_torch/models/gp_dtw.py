@@ -221,8 +221,8 @@ class GPDTW1D(AbstractEmulator):
         jitter = cfg.jitter if jitter is None else jitter
         if collection[0].ndim > 2:
             raise NotImplementedError(
-                "GPDTW1D handles (realisation, time) data only; gridded fields need GPDTW3D "
-                "(ROADMAP.md item A9)"
+                "GPDTW1D handles (realisation, time) data only; fit gridded "
+                "(realisation, time, latitude, longitude) fields with GPDTW3D"
             )
         np_dtype = torch.empty((), dtype=self.dtype).numpy().dtype
         block, mask = collection.padded_stack(dtype=np_dtype)

@@ -60,19 +60,29 @@ _SQRT3 = 1.7320508075688772
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
-    """``log(1 + exp(x))`` computed as ``jax.nn.softplus`` does."""
+    """``log(1 + exp(x))`` by ``torch.logaddexp``, which can round an ulp
+    away from ``jax.nn.softplus``.  ``ops/svgp.py`` keeps JAX's rounding
+    (ROADMAP C12); here it would move ``MeanField``'s fit, whose Adam starts
+    at the closed-form optimum where the gradient is round-off, from within
+    1e-3 of the JAX package to 4.1e-3
+    (``tests/test_torch_library_api.py::test_mean_field_refinement_matches_jax``)."""
     return torch.logaddexp(x, torch.zeros_like(x))
 
 
 class BatchedGPParams(nn.Module):
     """Unconstrained kernel hyperparameters of ``M`` models, each ``(M,)``
-    (softplus-transformed, matching GPflow's default positive bijector)."""
+    (softplus-transformed, matching GPflow's default positive bijector).
+
+    The gridded surface (``parallel/gridded.py``) holds ``(M, C)`` leaves,
+    one value per model and cell, as the JAX ``GPParams`` does there; the
+    batched fits take ``(M,)`` leaves."""
 
     def __init__(self, raw_lengthscale: torch.Tensor, raw_variance: torch.Tensor):
         super().__init__()
-        if raw_lengthscale.shape != raw_variance.shape or raw_lengthscale.dim() != 1:
+        if raw_lengthscale.shape != raw_variance.shape or raw_lengthscale.dim() not in (1, 2):
             raise ValueError(
-                f"expected two (M,) tensors, got {raw_lengthscale.shape} and {raw_variance.shape}"
+                "expected two (M,) or two (M, C) tensors, got "
+                f"{raw_lengthscale.shape} and {raw_variance.shape}"
             )
         self.raw_lengthscale = nn.Parameter(raw_lengthscale)
         self.raw_variance = nn.Parameter(raw_variance)

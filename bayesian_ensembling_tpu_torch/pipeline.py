@@ -6,9 +6,11 @@ SSP collections with
 :class:`~bayesian_ensembling_tpu_torch.models.gp_dtw.GPDTW1D`, weights them
 against observations (CRPS by default) and combines them with the W2
 :class:`~bayesian_ensembling_tpu_torch.schemes.Barycentre`.  Each collection
-is fitted as one batch on the card.  The netCDF loaders and the gridded
-pipeline are not ported yet and raise ``NotImplementedError`` naming their
-ROADMAP.md item.
+is fitted as one batch on the card.  :func:`run_gridded_scenario` is the
+gridded counterpart: :class:`~bayesian_ensembling_tpu_torch.models.gp_3d.GPDTW3D`
+per (lat, lon) cell, weights per point, the per-point barycentre.  The
+netCDF loaders are not ported yet and raise ``NotImplementedError`` naming
+their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -57,10 +59,6 @@ def load_scenario(*args, **kwargs) -> tp.Tuple[ModelCollection, ModelCollection]
 
 def load_packed_scenarios(*args, **kwargs):
     raise not_ported("pipeline.load_packed_scenarios (the netCDF reader)", "A7b")
-
-
-def run_gridded_scenario(*args, **kwargs):
-    raise not_ported("pipeline.run_gridded_scenario (GPDTW3D)", "A9")
 
 
 @dataclasses.dataclass
@@ -181,6 +179,50 @@ def run_scenario(
     _sync()
     total = _time.perf_counter() - t0
     return ScenarioResult(ssp_name, w_fore, barycentre, t_fit, total)
+
+
+def run_gridded_scenario(
+    collection: ModelCollection,
+    observations: ProcessModel,
+    weighter: tp.Optional[tp.Any] = None,
+    emulator: tp.Optional[tp.Any] = None,
+    n_optim_nits: int = 500,
+    dba_iterations: int = 10,
+    dba_method: str = "classic",
+    dba_tol: tp.Optional[float] = None,
+    sigma_mode: str = "w2",
+    refine_f64: bool = False,
+    refine_device: tp.Union[str, torch.device, None] = None,
+    refine_cell_chunk: tp.Optional[int] = None,
+    device: tp.Union[str, torch.device] = "cuda",
+) -> tp.Tuple[tp.Any, Posterior]:
+    """Gridded fit -> weight -> combine, on ``device`` (the card unless the
+    caller asks for ``"cpu"``; a CUDA device without CUDA raises).
+
+    Every (model, cell) pair is emulated as an independent DBA + exact GP
+    (``GPDTW3D`` batched mode by default), weighted per point against the
+    gridded observations (CRPS by default) and combined with the per-point
+    W2 barycentre.  Returns ``(weights DimArray, barycentre Posterior)``.
+
+    ``refine_f64`` publishes float64 per-cell moments recomputed at the
+    float32-converged hyperparameters on ``refine_device`` (``device`` when
+    omitted), in cell pieces of ``refine_cell_chunk``; the weighting and
+    combination then run in float64 too, because they compute in the
+    moments' dtype.
+    """
+    from bayesian_ensembling_tpu_torch.models.gp_3d import GPDTW3D
+
+    device = resolve_device(device, "run_gridded_scenario")
+    weighter = weighter or CRPSWeight()
+    emulator = emulator or GPDTW3D()
+    collection.fit(
+        emulator, n_optim_nits=n_optim_nits, dba_iterations=dba_iterations,
+        dba_method=dba_method, dba_tol=dba_tol, refine_f64=refine_f64,
+        refine_device=refine_device, refine_cell_chunk=refine_cell_chunk, device=device,
+    )
+    weights = weighter(collection, observations)
+    bary = Barycentre()(collection, weights, sigma_mode=sigma_mode)
+    return weights, bary
 
 
 def warming_summary(

@@ -88,6 +88,29 @@ Phases, in order; any failure exits non-zero:
    against phase 4's fused step for scenario 0 (0.01 degC); the median
    wall time of 3 runs and the share of fit, weights and scheme.
 
+10. The gridded surface at the 5-degree north-star grid of
+   ``benchmarks/gridded_bench.py`` (5 models x 36 x 72 cells x 10
+   realisations x 86 annual steps, 10 observation members: 12,960 GP fits;
+   the inputs from a copy of ``benchmarks/gridded_common.make_workload_cells``):
+   B1 at N = 129,600 pairs and B2 / B3 at B = 12,960 and 2,592 matrices
+   against their plain versions on sampled rows, timed beside their bounds;
+   ``gridded_ensemble_step`` at the gridded fast profile (scratch bfgs-30),
+   float32 on the card, a warm-up (which counts the step's host
+   synchronisations) and the median of 3 runs, every launch and route
+   counter checked, the peak device memory, a stage split and one
+   profiler window over the fit (the card's busy share); the first 64
+   cells' barycentre within 1e-3 of the JAX package's float64 moments in
+   ``benchmarks/gridded_oracle.json`` (bfgs-30); ``refined_gridded_f64`` of
+   the whole grid on the card against float64 plain on the CPU (64 cells,
+   1e-5); Adam-500 on the first 64 cells and the coarse-to-fine warm start
+   (stride 5, bfgs-30 coarse, bfgs-20 fine) against their oracle entries
+   (1e-3); ``run_gridded_scenario`` over five ``ProcessModel`` objects of
+   (10, 86, 36, 72) (CRPS, float32, 500 Adam steps), float32 against
+   float64 on an 8 x 8 sub-grid (0.01 degC), with ``LogLikelihoodWeight``
+   (no Cholesky or vector-solve launch: the posteriors are diagonal); and
+   ``GPDTW3D(mode="svgp")`` on the 8 x 8 sub-grid, float64, card against
+   CPU (1e-3 degC).
+
 The last lines are a JSON summary of the kernels, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
 """
@@ -96,10 +119,12 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 
@@ -1471,6 +1496,465 @@ def run_library(torch, bt, inputs, dev, step_out, report, nits=LIBRARY_NITS):
     return ok
 
 
+
+# ------------------------------------------------------------------ gridded
+# The 5-degree gridded workload of benchmarks/gridded_bench.py (``500 36 72
+# --profile fast``): 5 models x 36 x 72 cells x 10 realisations x 86 annual
+# steps, 10 observation members; 12,960 independent (model, cell) GP fits.
+GRID_M, GRID_R, GRID_T, GRID_R_OBS, GRID_SEED = 5, 10, 86, 10, 0
+GRID_LAT, GRID_LON = 36, 72
+GRID_NITS, GRID_KW = 30, dict(optimizer="bfgs")  # the gridded "fast" profile: scratch bfgs-30
+GRID_ADAM_NITS = 500
+GRID_WARM_STRIDE, GRID_WARM_FINE = 5, 20
+GRID_ORACLE_CELLS = 64
+GRID_TOL = 1e-3  # against the JAX package's float64 moments (gridded_bench.py:46-51)
+# The bench's closeness-to-truth measure (gridded_bench.quality_gate_check):
+# max |d| from the float64 converged Adam-2000 entry, held to a baseline's own
+# within 2%.
+GRID_TRUTH_NITS, GRID_QUALITY_SLACK = 2000, 1.02
+GRID_REPS = 3
+GRID_SUB = 8  # the 8 x 8 sub-grids of the library route's f64 check and the svgp mode
+SVGP_EPOCHS = 10  # svgp mode: 10 epochs of 5,504 // 500 = 11 steps, 400 inducing points
+SVGP_DEGC = 1e-3  # svgp mode, float64 on the card against float64 on the CPU
+
+
+def make_workload_cells(cell_indices, dtype=np.float32):
+    """Copy of ``benchmarks/gridded_common.make_workload_cells``: every
+    cell's data from its own substream keyed on the flat cell id, so any
+    subset of cells reproduces the full grid's arrays."""
+    cell_indices = np.asarray(cell_indices)
+    signal = np.sin(np.linspace(0, 3, GRID_T))
+    block = np.empty((GRID_M, cell_indices.size, GRID_R, GRID_T), dtype=dtype)
+    obs = np.empty((cell_indices.size, GRID_R_OBS, GRID_T), dtype=dtype)
+    for i, c in enumerate(cell_indices):
+        rng = np.random.default_rng(GRID_SEED + 1000 + int(c))
+        block[:, i] = signal + 0.3 * rng.normal(size=(GRID_M, GRID_R, GRID_T))
+        obs[i] = signal + 0.3 * rng.normal(size=(GRID_R_OBS, GRID_T))
+    return block, obs
+
+
+def _oracle_entries(name):
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "benchmarks", name)
+    with open(path) as fh:
+        loaded = json.load(fh)
+    return loaded["entries"] if "entries" in loaded else [loaded]
+
+
+def select_oracle_entry(entries, *, n_iters, n_cells, warm_stride, fine_nits, lat, lon,
+                        optimizer="adam"):
+    """Copy of ``benchmarks/gridded_bench.select_oracle_entry``: the entry of
+    this configuration, or None (entries without an optimizer are Adam)."""
+    return next(
+        (
+            o
+            for o in entries
+            if o.get("n_optim_nits") == n_iters
+            and o["n_cells"] <= n_cells
+            and o.get("warm_stride", 0) == warm_stride
+            and o.get("optimizer", "adam") == optimizer
+            and (not warm_stride or o.get("fine_nits") == fine_nits)
+            and (not warm_stride or (o.get("lat"), o.get("lon")) == (lat, lon))
+        ),
+        None,
+    )
+
+
+def _oracle_gap(out, entry):
+    """Max pointwise |d| of the barycentre mean and std on the oracle's cells."""
+    nc = entry["n_cells"]
+    mean = out[0][:nc].double().cpu().numpy()
+    std = out[1][:nc].double().cpu().numpy()
+    return (float(np.abs(mean - np.asarray(entry["bary_mean"])).max()),
+            float(np.abs(std - np.asarray(entry["bary_std"])).max()))
+
+
+def quality_gap(mean, std, truth, baseline):
+    """The measure of ``benchmarks/gridded_bench.quality_gate_check``: max
+    pointwise |d| of the barycentre mean and std from the ``truth`` entry on
+    the first cells, for the run and for the ``baseline`` entry:
+    ``((run_mean, run_std), (base_mean, base_std))``."""
+    nc = min(len(mean), truth["n_cells"], baseline["n_cells"])
+    tm, ts = np.asarray(truth["bary_mean"])[:nc], np.asarray(truth["bary_std"])[:nc]
+
+    def gap(m, s):
+        return (float(np.abs(np.asarray(m, np.float64)[:nc] - tm).max()),
+                float(np.abs(np.asarray(s, np.float64)[:nc] - ts).max()))
+
+    return gap(mean, std), gap(baseline["bary_mean"], baseline["bary_std"])
+
+
+def quality_ok(run, base):
+    """The bench's quality gate: the run no further from the truth than the
+    baseline, with its 2% slack, in both moments."""
+    return all(r <= b * GRID_QUALITY_SLACK for r, b in zip(run, base))
+
+
+def _gridded_collections(bt, block, obs, lat, lon):
+    """The gridded arrays as the library's containers: one ``ProcessModel``
+    of shape (R, T, lat, lon) per model, and the observations."""
+    dims = ("realisation", "time", "latitude", "longitude")
+    coords = {"time": (np.datetime64("1930", "Y") + np.arange(GRID_T)).astype("datetime64[ns]"),
+              "latitude": -87.5 + 5.0 * np.arange(lat), "longitude": 2.5 + 5.0 * np.arange(lon)}
+
+    def grid(a):  # (C, R, T) -> (R, T, lat, lon)
+        return np.ascontiguousarray(a.reshape(lat, lon, a.shape[1], GRID_T).transpose(2, 3, 0, 1))
+
+    models = [bt.ProcessModel(bt.DimArray(grid(block[k]), dims, dict(coords), name="tas"),
+                              f"model{k}") for k in range(block.shape[0])]
+    observations = bt.ProcessModel(bt.DimArray(grid(obs), dims, dict(coords), name="tas"),
+                                   "Observations")
+    return models, observations
+
+
+def _busy_share(torch, fn, log_dir):
+    """Run ``fn`` once under the port's ``utils.profiling.trace`` (its Chrome
+    trace goes to ``log_dir``): (host wall s, device busy s, busy share), the
+    busy time being the union of the intervals of the kernels the profiler
+    saw on the card (None when it saw none)."""
+    from torch.autograd import DeviceType
+
+    from bayesian_ensembling_tpu_torch.utils.profiling import trace
+
+    torch.cuda.synchronize()
+    with trace(log_dir) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    busy_us, end = 0.0, float("-inf")
+    for lo, hi in spans:
+        if hi > end:
+            busy_us += hi - max(lo, end)
+            end = hi
+    if not spans:
+        return wall, None, None
+    return wall, busy_us * 1e-6, busy_us * 1e-6 / wall
+
+
+def check_gridded_kernels(torch, dev, block, report):
+    """Phase 10: B1 at the step's (129,600, 86) and B2 / B3 at (12,960, 86)
+    and the library route's (2,592, 86), each against its plain version (B1
+    on every pair, B2 / B3 on a sample of matrices) and timed beside its
+    bound (B3 also beside ``solve_triangular``)."""
+    from bayesian_ensembling_tpu_torch.ops import dtw_cuda
+    from bayesian_ensembling_tpu_torch.ops import linalg_cuda as lc
+
+    ok = True
+    rows = torch.randperm(GRID_M * block.shape[1] * GRID_R,
+                          generator=torch.Generator().manual_seed(0))[:512].to(dev)
+    series = torch.tensor(block.reshape(-1, GRID_T), device=dev)
+    b3 = series.reshape(-1, GRID_R, GRID_T)
+    centers = b3.mean(dim=1).repeat_interleave(GRID_R, dim=0).contiguous()
+    n = series.shape[0]
+    got = dtw_cuda.dba_update_batch(centers, series, impl="fused")
+    want = dtw_cuda.dba_update_batch_reference(centers, series)
+    torch.cuda.synchronize()
+    exact = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    err = max(_abs(got[0], want[0]), _abs(got[1], want[1]))
+    del got, want
+    ms = _cuda_ms(torch, lambda: dtw_cuda.dba_update_batch(centers, series, impl="fused"), 10)
+    plain_ms = _cuda_ms(torch, lambda: dtw_cuda.dba_update_batch_reference(centers, series), 1)
+    work = _dba_work(n, GRID_T)
+    bound_ms, bound_by = _bound(*work)
+    log(f"  dba_update N={n} T={GRID_T} (gridded step): exact on all {n} pairs={exact}; kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.1f} ms, bound {bound_ms:.5f} ms ({bound_by})")
+    ok &= exact
+    report["dba_update"].append(dict(t=GRID_T, n=n, err=err, ms=ms, plain_ms=plain_ms, work=work,
+                                     library_ms=None))
+    del centers, series
+
+    x = b3.transpose(1, 2).contiguous()
+    noise = b3.var(dim=1).clamp(min=1e-8)
+    for b in (x.shape[0], x.shape[0] // GRID_M):
+        ky = _matern_spd(torch, x[:b], noise[:b], dev)
+        y = b3[:b, 0].contiguous()
+        sel = rows[rows < b][:256]
+        got = lc.chol_solve(ky, y)
+        want = lc.chol_solve_reference(ky[sel], y[sel])
+        torch.cuda.synchronize()
+        rel = max(_rel(g[sel], w_) for g, w_ in zip(got, want))
+        err = max(_abs(g[sel], w_) for g, w_ in zip(got, want))
+        ms = _cuda_ms(torch, lambda: lc.chol_solve(ky, y), 20)
+        plain_ms = _cuda_ms(torch, lambda: lc.chol_solve_reference(ky, y), 3)
+        work = _chol_solve_work(b, GRID_T)
+        bound_ms, bound_by = _bound(*work)
+        log(f"  chol_solve B={b} T={GRID_T} (gridded): rel err {rel:.2e} on {sel.numel()} sampled "
+            f"matrices (tol {LINALG_TOL}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{bound_ms:.5f} ms ({bound_by})")
+        ok &= rel < LINALG_TOL
+        report["chol_solve"].append(dict(t=GRID_T, n=b, err=err, ms=ms, plain_ms=plain_ms, work=work,
+                                         library_ms=None))
+        l = got[0]
+        got_w = lc.tri_inv(l)
+        want_w = lc.tri_inv_reference(l[sel])
+        torch.cuda.synchronize()
+        rel = _rel(got_w[sel], want_w)
+        err = _abs(got_w[sel], want_w)
+        ms = _cuda_ms(torch, lambda: lc.tri_inv(l), 20)
+        plain_ms = _cuda_ms(torch, lambda: lc.tri_inv_reference(l), 3)
+        eye = torch.eye(GRID_T, device=dev).expand_as(l)
+        lib_ms = _cuda_ms(torch, lambda: torch.linalg.solve_triangular(l, eye, upper=False), 3)
+        work = _triangle_work(b, GRID_T)
+        bound_ms, bound_by = _bound(*work)
+        log(f"  tri_inv B={b} T={GRID_T} (gridded): rel err {rel:.2e} on {sel.numel()} sampled "
+            f"matrices (tol {LINALG_TOL}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"solve_triangular {lib_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
+        ok &= rel < LINALG_TOL
+        report["tri_inv"].append(dict(t=GRID_T, n=b, err=err, ms=ms, plain_ms=plain_ms, work=work,
+                                      library_ms=lib_ms))
+        del ky, got, got_w, want, want_w, l, eye
+    torch.cuda.empty_cache()
+    return ok
+
+
+def _gridded_stage_split(torch, bt, blk, ob, mk):
+    """Wall time of each stage of one gridded bfgs-30 step, run stage by stage."""
+    from bayesian_ensembling_tpu_torch.ops import gp as gp_ops
+
+    m, c, r, t = blk.shape
+    b3, m2 = blk.reshape(m * c, r, t), mk.reshape(m * c, r)
+    times = {}
+    times["dba"], (x, y, v) = _wall(torch, lambda: gp_ops.prepare_gp_inputs(b3, m2, dba_iterations=10))
+    times["fit"], (params, _) = _wall(torch, lambda: gp_ops.fit_gp_batch_dispatch(
+        x, y, v, n_optim_nits=GRID_NITS, **GRID_KW))
+    times["posterior"], (mu, var) = _wall(torch, lambda: gp_ops.posterior_marginals_batch(
+        params, x, y, v))
+    times["tail"], _ = _wall(torch, lambda: bt.gridded_tail(
+        mu.reshape(m, c, t), (var + v).reshape(m, c, t), ob, blk, mk))
+    return times, (x, y, v)
+
+
+def run_gridded(torch, bt, dev, report):
+    """Phase 10: the gridded surface at the 5-degree north-star grid (see the
+    module docstring)."""
+    from bayesian_ensembling_tpu_torch.ops import gp as gp_ops
+
+    ok = True
+    c = GRID_LAT * GRID_LON
+    t0 = time.perf_counter()
+    block, obs = make_workload_cells(np.arange(c))
+    log(f"[gridded] M={GRID_M} x {GRID_LAT}x{GRID_LON} cells x R={GRID_R} x T={GRID_T}, "
+        f"R_obs={GRID_R_OBS}: {GRID_M * c} fits; inputs made in {time.perf_counter() - t0:.1f} s")
+    oracle = _oracle_entries("gridded_oracle.json")
+    warm_oracle = _oracle_entries("gridded_oracle_warm.json")
+    pick = dict(n_cells=c, warm_stride=0, fine_nits=None, lat=GRID_LAT, lon=GRID_LON)
+    bfgs_entry = select_oracle_entry(oracle, n_iters=GRID_NITS, optimizer="bfgs", **pick)
+    adam_entry = select_oracle_entry(oracle, n_iters=GRID_ADAM_NITS, **pick)
+    truth_entry = select_oracle_entry(oracle, n_iters=GRID_TRUTH_NITS, **pick)
+    warm_entry = select_oracle_entry(warm_oracle, n_iters=GRID_NITS, n_cells=c,
+                                     warm_stride=GRID_WARM_STRIDE, fine_nits=GRID_WARM_FINE,
+                                     lat=GRID_LAT, lon=GRID_LON, optimizer="bfgs")
+    if None in (bfgs_entry, adam_entry, truth_entry, warm_entry):
+        log("[gridded] an oracle entry is missing from benchmarks/gridded_oracle*.json")
+        return False
+
+    log("[kernels] at the gridded shapes")
+    ok &= check_gridded_kernels(torch, dev, block, report)
+
+    blk = torch.tensor(block, device=dev)
+    ob = torch.tensor(obs, device=dev)
+    mk = torch.ones(blk.shape[:3], dtype=torch.bool, device=dev)
+
+    def step(**kw):
+        return bt.gridded_ensemble_step(blk, ob, mk, n_optim_nits=GRID_NITS, return_fit=True,
+                                        **GRID_KW, **kw)
+
+    # The warm-up run counts the host synchronisations of a step.
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            dt, _ = _wall(torch, step)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [f"{os.path.basename(w.filename)}:{w.lineno}" for w in caught
+             if "synchroniz" in str(w.message)]
+    log(f"[gridded] warm-up {dt:.3f} s; host synchronisations in one step: {len(syncs)}, at "
+        f"{sorted(set(syncs))}")
+    walls = []
+    for rep in range(GRID_REPS):
+        bt.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        dt, out = _wall(torch, step)
+        walls.append(dt)
+        if rep == 0:
+            launches, routes = bt.launch_counts(), bt.route_counts()
+            peak = torch.cuda.max_memory_allocated() / 2**30
+        log(f"[gridded] run {rep + 1}: {dt:.3f} s")
+    report["gridded_launches"] = launches
+    expected = {"dba_update": 10, "dba_update_split": 0, "chol_solve": 2 * GRID_NITS + 1,
+                "tri_inv": GRID_NITS + 1, "chol": 0, "dtw_cost": 0, "solve_vec": 0}
+    expected_routes = {"kernel": 3 * GRID_NITS + 2, "blocked": 0, "library": 0}
+    wsum = out[2].double().sum(dim=0)
+    finite = all(bool(torch.isfinite(a).all()) for a in out[:3])
+    gap = _oracle_gap(out, bfgs_entry)
+    log(f"[gridded] gridded_ensemble_step bfgs-{GRID_NITS} f32, {GRID_M * c} fits: median "
+        f"{statistics.median(walls):.3f} s over {len(walls)} runs; peak device memory {peak:.2f} GiB; "
+        f"launches {launches} (expected {expected}); routes {routes} (expected {expected_routes})")
+    log(f"[gridded] first {bfgs_entry['n_cells']} cells vs the JAX float64 oracle (bfgs-{GRID_NITS}): "
+        f"max |dmean| {gap[0]:.3e}, max |dstd| {gap[1]:.3e} (gate {GRID_TOL}); finite={finite}, "
+        f"max |sum of weights - 1| {(wsum - 1).abs().max().item():.1e}")
+    ok &= (launches == expected and routes == expected_routes and finite
+           and (wsum - 1).abs().max().item() < 1e-5 and max(gap) < GRID_TOL)
+
+    times, (x, y, v) = _gridded_stage_split(torch, bt, blk, ob, mk)
+    total = sum(times.values())
+    log("[gridded] stages: " + ", ".join(f"{k} {s:.3f} s ({s / total:.1%})" for k, s in times.items())
+        + f"; {times['fit'] / GRID_NITS * 1e3:.2f} ms per BFGS step")
+    trace_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "gridded_trace")
+    wall, dev_s, share = _busy_share(torch, lambda: gp_ops.fit_gp_batch_dispatch(
+        x, y, v, n_optim_nits=GRID_NITS, **GRID_KW), trace_dir)
+    log(f"[gridded] profiler window over one bfgs-{GRID_NITS} fit (trace in {trace_dir}): wall "
+        f"{wall:.3f} s, device "
+        + ("time not measured (the profiler saw none)" if dev_s is None else
+           f"kernel time {dev_s:.3f} s, busy share {share:.1%}"))
+    report["gridded_profile"] = dict(wall=wall, device=dev_s, share=share)
+    del x, y, v
+
+    # The float64 refinement of the whole grid at the step's fit, on the card;
+    # the first cells again in float64 by the plain versions on the CPU.
+    params, ym, yv = out[3:]
+    torch.cuda.reset_peak_memory_stats()
+    dt, refined = _wall(torch, lambda: bt.refined_gridded_f64(blk, ob, mk, params, (ym, yv),
+                                                                device=dev))
+    peak64 = torch.cuda.max_memory_allocated() / 2**30
+    nc = GRID_ORACLE_CELLS
+
+    def cells(a):
+        return a[:, :nc].cpu()
+
+    cpu = bt.refined_gridded_f64(cells(blk), ob[:nc].cpu(), cells(mk),
+                                 bt.BatchedGPParams(cells(params.raw_lengthscale),
+                                                    cells(params.raw_variance)),
+                                 (cells(ym), cells(yv)), device="cpu")
+    rgap = max(float(np.abs(refined[0][:nc] - cpu[0]).max()),
+               float(np.abs(refined[1][:nc] - cpu[1]).max()))
+    drift = max(_abs(torch.from_numpy(refined[0]), out[0]), _abs(torch.from_numpy(refined[1]), out[1]))
+    log(f"[gridded] refined_gridded_f64 on the card, whole grid in one piece: {dt:.3f} s, peak "
+        f"device memory {peak64:.2f} GiB; vs float64 plain on the CPU ({nc} cells): {rgap:.3e} "
+        f"(gate {REFINED_DEGC}); f32 -> f64 drift {drift:.3e}")
+    ok &= rgap < REFINED_DEGC and all(np.isfinite(a).all() for a in refined)
+    del out, params, ym, yv, refined
+
+    # Adam-500 on the oracle's cells.
+    dt, adam = _wall(torch, lambda: bt.gridded_ensemble_step(
+        blk[:, :nc].contiguous(), ob[:nc].contiguous(), mk[:, :nc].contiguous(),
+        n_optim_nits=GRID_ADAM_NITS))
+    gap = _oracle_gap(adam, adam_entry)
+    log(f"[gridded] Adam-{GRID_ADAM_NITS} on the first {nc} cells ({GRID_M * nc} fits): {dt:.3f} s; "
+        f"vs the oracle max |dmean| {gap[0]:.3e}, max |dstd| {gap[1]:.3e} (gate {GRID_TOL})")
+    ok &= max(gap) < GRID_TOL
+
+    # The coarse-to-fine warm start: bfgs-30 on every 5th row and column,
+    # then bfgs-20 on every cell from its nearest coarse cell.
+    def warm():
+        init = bt.coarse_warm_start(blk, mk, GRID_LAT, GRID_LON, GRID_WARM_STRIDE,
+                                    n_optim_nits=GRID_NITS, **GRID_KW)
+        return bt.gridded_ensemble_step(blk, ob, mk, gp_init=init, n_optim_nits=GRID_WARM_FINE,
+                                        **GRID_KW)
+
+    _wall(torch, warm)
+    dt, wout = _wall(torch, warm)
+    nc = warm_entry["n_cells"]
+    finite = all(bool(torch.isfinite(a).all()) for a in wout[:3])
+    first = [a[:nc].double().cpu().numpy() for a in wout[:2]]
+    (q32, q_warm), (_, q_500) = (quality_gap(*first, truth_entry, warm_entry),
+                                 quality_gap(*first, truth_entry, adam_entry))
+    gap = _oracle_gap(wout, warm_entry)
+    blk, ob = blk.double(), ob.double()
+    dt64, w64 = _wall(torch, warm)
+    gap64 = _oracle_gap(w64, warm_entry)
+    log(f"[gridded] warm start (stride {GRID_WARM_STRIDE}, bfgs-{GRID_NITS} coarse, "
+        f"bfgs-{GRID_WARM_FINE} fine), first {nc} cells: f32 {dt:.3f} s; its max |d| from the "
+        f"float64 Adam-{GRID_TRUTH_NITS} truth: mean {q32[0]:.5f}, std {q32[1]:.5f} (gate: no worse "
+        f"than the JAX float64 run of this configuration, {q_warm[0]:.5f} / {q_warm[1]:.5f}, "
+        f"x{GRID_QUALITY_SLACK}; scratch Adam-{GRID_ADAM_NITS} {q_500[0]:.5f} / {q_500[1]:.5f}, the "
+        f"bench's baseline, which that JAX run misses too, ROADMAP C11); f32 vs the warm oracle "
+        f"max |dmean| {gap[0]:.3e}, max |dstd| {gap[1]:.3e} (reported); f64 on the card "
+        f"{dt64:.3f} s, vs the warm oracle max |dmean| {gap64[0]:.3e}, max |dstd| {gap64[1]:.3e} "
+        f"(gate {GRID_TOL})")
+    ok &= quality_ok(q32, q_warm) and max(gap64) < GRID_TOL and finite
+    del wout, w64, blk, ob, mk
+    torch.cuda.empty_cache()
+    ok &= run_gridded_library(torch, bt, dev, block, obs)
+    if not ok:
+        print("chip_smoke: the gridded phase failed its check", file=sys.stderr)
+    return ok
+
+
+def run_gridded_library(torch, bt, dev, block, obs):
+    """Phase 10, the library route: ``run_gridded_scenario`` over the five
+    gridded ``ProcessModel`` objects (``GPDTW3D`` batched mode, one model's
+    2,592 cells a batch, 500 Adam steps); float32 against float64 on an 8 x 8
+    sub-grid; ``LogLikelihoodWeight``'s diagonal branch; and ``GPDTW3D``'s
+    svgp mode on the card against the CPU."""
+    ok = True
+    models, observations = _gridded_collections(bt, block, obs, GRID_LAT, GRID_LON)
+    # One emulation a model: 10 DBA passes, and a B2 and a B3 launch for each
+    # of the Adam steps and for the posterior; the diagonal posteriors send
+    # no weighter to B4 or B5.
+    fits = GRID_M * (GRID_ADAM_NITS + 1)
+    expected = {"dba_update": 10 * GRID_M, "dba_update_split": 0, "chol_solve": fits,
+                "tri_inv": fits, "chol": 0, "dtw_cost": 0, "solve_vec": 0}
+    bt.reset_launch_counts()
+    dt, (w, bary) = _wall(torch, lambda: bt.run_gridded_scenario(
+        bt.ModelCollection(models), observations, n_optim_nits=GRID_ADAM_NITS, device=dev))
+    launches = bt.launch_counts()
+    finite = bool(np.isfinite(bary.mean.values).all() and np.isfinite(bary.stddev.values).all())
+    wsum = float(np.abs(w.values.sum(axis=0) - 1.0).max())
+    log(f"[gridded-library] run_gridded_scenario(CRPSWeight), {GRID_M} x {GRID_LAT}x{GRID_LON}, "
+        f"f32, {GRID_ADAM_NITS} Adam steps: {dt:.3f} s; launches {launches} (expected {expected}); "
+        f"finite={finite}, max |sum of weights - 1| {wsum:.1e}")
+    ok &= finite and wsum < 1e-5 and launches == expected
+
+    sub = (np.arange(GRID_SUB)[:, None] * GRID_LON + np.arange(GRID_SUB)[None, :]).ravel()
+    small, small_obs = _gridded_collections(bt, block[:, sub], obs[sub], GRID_SUB, GRID_SUB)
+    res = {}
+    for dtype in (torch.float32, torch.float64):
+        dt, res[dtype] = _wall(torch, lambda: bt.run_gridded_scenario(
+            bt.ModelCollection([bt.ProcessModel(pm.data, pm.name) for pm in small]), small_obs,
+            emulator=bt.GPDTW3D(dtype=dtype), device=dev))
+        log(f"[gridded-library] {GRID_SUB}x{GRID_SUB} sub-grid, {dtype}: {dt:.3f} s")
+    (w32, b32), (w64, b64) = res[torch.float32], res[torch.float64]
+    dmean = float(np.abs(b32.mean.values - b64.mean.values).max())
+    dstd = float(np.abs(b32.stddev.values - b64.stddev.values).max())
+    dw = float(np.abs(w32.values - w64.values).max())
+    log(f"[gridded-library] f32 vs f64 on the card: max |dmean| {dmean:.3e} degC, max |dstd| "
+        f"{dstd:.3e} degC (gate {PARITY_DEGC}), max |dweight| {dw:.3e}")
+    ok &= dmean < PARITY_DEGC and dstd < PARITY_DEGC
+
+    bt.reset_launch_counts()
+    dt, (wl, bl) = _wall(torch, lambda: bt.run_gridded_scenario(
+        bt.ModelCollection([bt.ProcessModel(pm.data, pm.name) for pm in small]), small_obs,
+        weighter=bt.LogLikelihoodWeight(), n_optim_nits=GRID_ADAM_NITS, device=dev))
+    launches = bt.launch_counts()
+    finite = bool(np.isfinite(bl.mean.values).all())
+    log(f"[gridded-library] LogLikelihoodWeight on the diagonal posteriors: {dt:.3f} s; launches "
+        f"{launches} (expected {expected}: chol and solve_vec stay 0); finite={finite}")
+    ok &= finite and launches == expected
+
+    # The svgp mode: the minibatch indices come from a CPU generator seeded
+    # by (seed, step), so the card and the CPU take the same minibatches.
+    svgp = []
+    for where in (dev, torch.device("cpu")):
+        mc = bt.ModelCollection([bt.ProcessModel(small[0].data, small[0].name)])
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            em = bt.GPDTW3D(mode="svgp", dtype=torch.float64)
+        dt, _ = _wall(torch, lambda: mc.fit(em, n_optim_nits=SVGP_EPOCHS, device=where))
+        g = mc[0].distribution.gaussian
+        svgp.append((g.mean.cpu(), torch.sqrt(g.var).cpu()))
+        log(f"[gridded-svgp] GPDTW3D(mode='svgp') float64, {GRID_SUB}x{GRID_SUB} cells x {GRID_T} "
+            f"steps, {SVGP_EPOCHS} epochs, 400 inducing points, on {where.type}: {dt:.3f} s")
+    gap = max(_abs(svgp[0][0], svgp[1][0]), _abs(svgp[0][1], svgp[1][1]))
+    log(f"[gridded-svgp] card vs CPU: max |dmoment| {gap:.3e} degC (gate {SVGP_DEGC})")
+    ok &= gap < SVGP_DEGC and bool(torch.isfinite(svgp[0][0]).all())
+    return ok
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of the synthetic inputs")
@@ -1604,6 +2088,10 @@ def main(argv=None):
     if not run_library(torch, bt, inputs, dev, step_out, report):
         return 1
 
+    # Phase 10: the gridded surface at the 5-degree grid.
+    if not run_gridded(torch, bt, dev, report):
+        return 1
+
     # Each kernel's row: its time and bound at the first shape it was checked
     # at (the annual T = 165 for B1-B3, the leaves for B4, T = 1980 for B6,
     # the subgradient epoch cost at T = 165 for B7, one scenario's historical
@@ -1639,7 +2127,8 @@ def main(argv=None):
                                  "monthly": report["monthly_launches"][name],
                                  "subgradient": report["subgradient_launches"][name],
                                  "medoid": report["medoid_launches"][name],
-                                 "library": report["library_launches"][name]},
+                                 "library": report["library_launches"][name],
+                                 "gridded": report["gridded_launches"][name]},
             "max_abs_err": max(r["err"] for r in report[name]),
             "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": main_shape["library_ms"],

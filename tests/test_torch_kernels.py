@@ -550,3 +550,84 @@ def test_solve_vec_kernel_refuses_a_layout_that_does_not_fit(cuda_device, monkey
 def test_library_builds_for_sm90a(cuda_device):
     _build.library()
     assert _build.build_info["path"].endswith(".so")
+
+
+# ------------------------------------------------------------- gridded sizes
+# The 5-degree gridded step (benchmarks/gridded_bench.py): 5 models x 2,592
+# cells = 12,960 GP fits at T = 86, and 10 realisations a fit, so the DBA
+# update aligns N = 129,600 pairs a launch.  The plain versions run on a
+# sample of the rows (rows are independent), including the last ones, where
+# a 32-bit offset would go wrong first.
+GRID_B, GRID_N, GRID_T = 12_960, 129_600, 86
+
+
+def _sample_rows(n, k=256, seed=0):
+    rows = torch.randperm(n, generator=torch.Generator().manual_seed(seed))[:k]
+    return torch.cat([rows, torch.arange(n - 8, n)]).unique()
+
+
+def _gridded_spd(b, t, dtype, device, seed=0):
+    """Matern-3/2 Grams on sorted inputs plus noise, built on the card (the
+    batch is 383 MB in float32)."""
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.sort(torch.randn((b, t), generator=gen, dtype=dtype), dim=1).values.to(device)
+    noise = (0.05 + 0.15 * torch.rand((b, t), generator=gen, dtype=dtype)).to(device)
+    d = (x[:, :, None] - x[:, None, :]).abs_().div_(1.3)
+    k = (1.0 + 3.0 ** 0.5 * d) * torch.exp(-(3.0 ** 0.5) * d)
+    del d
+    k.diagonal(dim1=-2, dim2=-1).add_(noise)
+    y = torch.randn((b, t), generator=gen, dtype=dtype).to(device)
+    return k, y
+
+
+def test_dba_update_kernel_at_the_gridded_batch(cuda_device):
+    c, s = _dba_pairs(GRID_N, GRID_T, torch.float32, cuda_device)
+    reset_launch_counts()
+    got_s, got_c = dtw_cuda.dba_update_batch(c, s, impl="fused")
+    assert launch_counts()["dba_update"] == 1
+    rows = _sample_rows(GRID_N).to(cuda_device)
+    want_s, want_c = dtw_cuda.dba_update_batch_reference(c[rows], s[rows])
+    torch.cuda.synchronize()
+    assert torch.equal(got_s[rows], want_s) and torch.equal(got_c[rows], want_c)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-3), (torch.float64, 1e-10)])
+def test_chol_solve_and_tri_inv_kernels_at_the_gridded_batch(cuda_device, dtype, tol):
+    ky, y = _gridded_spd(GRID_B, GRID_T, dtype, cuda_device)
+    reset_launch_counts()
+    l, z, alpha, logdet = tlc.chol_solve(ky, y)
+    w = tlc.tri_inv(l)
+    assert launch_counts()["chol_solve"] == 1 and launch_counts()["tri_inv"] == 1
+    rows = _sample_rows(GRID_B).to(cuda_device)
+    want = tlc.chol_solve_reference(ky[rows], y[rows])
+    want_w = tlc.tri_inv_reference(want[0])
+    torch.cuda.synchronize()
+    for g, w_ in zip((l, z, alpha, logdet), want):
+        assert rel_err(g[rows], w_) < tol
+    assert rel_err(w[rows], want_w) < tol
+
+
+def test_gridded_step_on_the_card_matches_the_cpu(cuda_device):
+    """``gridded_ensemble_step`` through the kernels (float64 on the card)
+    against the plain versions on the CPU, at a 4 x 4 grid of 2 models; the
+    launches are the ones the step implies."""
+    from bayesian_ensembling_tpu_torch.parallel import gridded
+
+    rng = np.random.default_rng(0)
+    m, c, r, t = 2, 16, 5, GRID_T
+    signal = np.sin(np.linspace(0, 3, t))
+    block = signal + 0.3 * rng.normal(size=(m, c, r, t))
+    obs = signal + 0.3 * rng.normal(size=(c, 10, t))
+    mask = np.ones((m, c, r), bool)
+    kw = dict(n_optim_nits=6, dba_iterations=3, optimizer="bfgs")
+    reset_launch_counts()
+    got = gridded.gridded_ensemble_step(
+        *(torch.from_numpy(a).to(cuda_device) for a in (block, obs, mask)), **kw)
+    counts = launch_counts()
+    want = gridded.gridded_ensemble_step(*(torch.from_numpy(a) for a in (block, obs, mask)), **kw)
+    # One DBA update an iteration; a value and gradient (B2 + B3) and a
+    # value-only proposal (B2) a BFGS step; B2 + B3 for the posterior.
+    assert counts["dba_update"] == 3
+    assert counts["chol_solve"] == 2 * 6 + 1 and counts["tri_inv"] == 6 + 1
+    for g, w_ in zip(got, want):
+        np.testing.assert_allclose(g.cpu().numpy(), w_.numpy(), rtol=0, atol=1e-8)

@@ -165,7 +165,9 @@ def test_imports_without_jax():
         "    importlib.import_module(info.name)\n"
         "for name in ('data', 'coords', 'weights', 'schemes', 'metrics', 'pipeline',"
         " 'models.gp_dtw', 'models.mean_field', 'ops.distributions', 'ops.wasserstein',"
-        " 'io.timeutils', 'utils.config', 'utils.profiles'):\n"
+        " 'io.timeutils', 'utils.config', 'utils.profiles', 'models.gp_3d', 'ops.svgp',"
+        " 'parallel.gridded', 'validation', 'utils.logging', 'utils.array_types',"
+        " 'utils.profiling'):\n"
         "    assert bt.__name__ + '.' + name in sys.modules, name\n"
         "bad = [m for m in sys.modules if m == 'bayesian_ensembling_tpu'"
         " or m.startswith('bayesian_ensembling_tpu.')]\n"
