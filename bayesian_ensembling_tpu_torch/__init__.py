@@ -8,14 +8,17 @@ version beside it, which runs when the tensors are on the CPU.
 
 Main entry points: the library API, ``ModelCollection([...]).fit(GPDTW1D())``
 -> a weighter -> ``Barycentre()``, and its one-call form
-:func:`pipeline.run_scenario`; its gridded counterpart, ``GPDTW3D`` and
-:func:`pipeline.run_gridded_scenario`, with the fused
+:func:`pipeline.run_scenario`, fed by the netCDF loaders
+``pipeline.load_observations`` / ``load_scenario``; its gridded counterpart,
+``GPDTW3D`` and :func:`pipeline.run_gridded_scenario`, with the fused
 :func:`gridded_ensemble_step` (every (model, cell) fit in one batch);
 :func:`ensemble_multi_scenario_step` (the
 annual 7-SSP step; every DBA method, optimiser, fit route and weight kind
 of the JAX step), :func:`run_dedup_campaign` (the native-monthly campaign,
 each unique model fitted once) and :func:`refined_multi_scenario_f64` (the
-float64 posterior and tail at given hyperparameters).
+float64 posterior and tail at given hyperparameters); the perfect-model
+test, :class:`PerfectModelTest` and :func:`batched_pmt`; and the serving
+layer, ``serve.ProjectionService`` with ``serve.build_artifacts``.
 """
 
 from bayesian_ensembling_tpu_torch import _build, metrics, ops, pipeline
@@ -102,14 +105,37 @@ from bayesian_ensembling_tpu_torch.weights import (
     ModelSimilarityWeight,
     UniformWeight,
 )
-from bayesian_ensembling_tpu_torch.validation import load_model_collection
+from bayesian_ensembling_tpu_torch.validation import (
+    PerfectModelTest,
+    batched_pmt,
+    load_model_collection,
+)
 
 __version__ = "0.1.0"
+
+
+def __getattr__(name: str):
+    # ``plotters`` draws with matplotlib and ``serve`` is an entry point of
+    # its own: both load on first use, so the core package imports in an
+    # install without matplotlib, pandas or h5py.
+    if name in ("plotters", "serve"):
+        import importlib
+
+        module = importlib.import_module(f"bayesian_ensembling_tpu_torch.{name}")
+        globals()[name] = module
+        return module
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
 
 __all__ = [
     "ops",
     "metrics",
     "pipeline",
+    # "plotters" is not in __all__: it loads on first use (module
+    # __getattr__), and `import *` must work without matplotlib.
+    "serve",
+    "PerfectModelTest",
+    "batched_pmt",
     "AbstractWeight",
     "Barycentre",
     "CRPSWeight",

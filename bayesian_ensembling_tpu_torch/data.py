@@ -89,10 +89,16 @@ class Posterior:
         return self.gaussian.log_prob(torch.as_tensor(x, dtype=mean.dtype, device=mean.device))
 
     def plot_temporally(self, **kwargs):
-        raise not_ported("Posterior.plot_temporally (plotters)", "A7b")
+        """Mean +- k sigma bands over time (``plotters.plot_posterior_temporal``)."""
+        from bayesian_ensembling_tpu_torch.plotters import plot_posterior_temporal
+
+        return plot_posterior_temporal(self, **kwargs)
 
     def plot_spatially(self, **kwargs):
-        raise not_ported("Posterior.plot_spatially (plotters)", "A7b")
+        """Time-mean maps of mean and stddev (``plotters.plot_posterior_spatial``)."""
+        from bayesian_ensembling_tpu_torch.plotters import plot_posterior_spatial
+
+        return plot_posterior_spatial(self, **kwargs)
 
     # ------------------------------------------------------------ checkpoint
     def to_arrays(self) -> tp.Dict[str, np.ndarray]:
@@ -206,7 +212,10 @@ class ProcessModel:
         return first.copy(values=np.full(first.shape, np.nan))
 
     def plot(self, **kwargs):
-        raise not_ported("ProcessModel.plot (plotters)", "A7b")
+        """Realisations and their mean over time (``plotters.plot_process_model``)."""
+        from bayesian_ensembling_tpu_torch.plotters import plot_process_model
+
+        return plot_process_model(self, **kwargs)
 
     # -------------------------------------------------------------- anomaly
     def calculate_anomaly(
@@ -355,10 +364,16 @@ class ModelCollection:
 
     # --------------------------------------------------------------- plots
     def plot_all(self, **kwargs):
-        raise not_ported("ModelCollection.plot_all (plotters)", "A7b")
+        """All model means on one axes (``plotters.plot_collection``)."""
+        from bayesian_ensembling_tpu_torch.plotters import plot_collection
+
+        return plot_collection(self, **kwargs)
 
     def plot_grid(self, **kwargs):
-        raise not_ported("ModelCollection.plot_grid (plotters)", "A7b")
+        """One panel per model (``plotters.plot_collection_grid``)."""
+        from bayesian_ensembling_tpu_torch.plotters import plot_collection_grid
+
+        return plot_collection_grid(self, **kwargs)
 
     # ----------------------------------------------------------- checkpoint
     def _to_blobs(self) -> tp.Dict[str, np.ndarray]:
@@ -412,7 +427,7 @@ class ModelCollection:
         if backend == "npz":
             np.savez_compressed(path, **self._to_blobs())
         elif backend == "orbax":
-            raise not_ported("ModelCollection.save(backend='orbax')", "A7b")
+            raise not_ported("ModelCollection.save(backend='orbax')", "A7b-2")
         else:
             raise ValueError(f"unknown checkpoint backend {backend!r}")
 
@@ -421,7 +436,7 @@ class ModelCollection:
         """Load an npz checkpoint written by either package; fitted
         posteriors' moments are placed on ``device``."""
         if os.path.isdir(path):  # orbax checkpoints are directories
-            raise not_ported("ModelCollection.load of an orbax checkpoint directory", "A7b")
+            raise not_ported("ModelCollection.load of an orbax checkpoint directory", "A7b-2")
         # np.savez_compressed appends '.npz' to extensionless paths: accept
         # the same spelling the caller used with save().
         if not os.path.exists(path) and os.path.exists(path + ".npz"):

@@ -1,4 +1,4 @@
-"""End-to-end GMST experiment pipeline, the part that reads no files.
+"""End-to-end GMST experiment pipeline.
 
 PyTorch counterpart of ``bayesian_ensembling_tpu/pipeline.py``:
 :func:`run_scenario` emulates every model of a scenario's historical and
@@ -9,23 +9,29 @@ against observations (CRPS by default) and combines them with the W2
 is fitted as one batch on the card.  :func:`run_gridded_scenario` is the
 gridded counterpart: :class:`~bayesian_ensembling_tpu_torch.models.gp_3d.GPDTW3D`
 per (lat, lon) cell, weights per point, the per-point barycentre.  The
-netCDF loaders are not ported yet and raise ``NotImplementedError`` naming
-their ROADMAP.md item.
+loaders read HadCRUT5 observations and per-SSP CMIP6 members from netCDF
+files (``io/netcdf.py``) and anomalise them against the 1961-1990 monthly
+climatology; they return numpy-backed containers, and the device enters at
+``fit``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import glob
+import os
 import time as _time
 import typing as tp
 
 import numpy as np
 import torch
 
-from bayesian_ensembling_tpu_torch._errors import not_ported, resolve_device
+from bayesian_ensembling_tpu_torch._errors import resolve_device
+from bayesian_ensembling_tpu_torch.coords import DimArray
 from bayesian_ensembling_tpu_torch.data import ModelCollection, Posterior, ProcessModel
-from bayesian_ensembling_tpu_torch.io import timeutils
+from bayesian_ensembling_tpu_torch.io import netcdf, timeutils
 from bayesian_ensembling_tpu_torch.models.gp_dtw import GPDTW1D
+from bayesian_ensembling_tpu_torch.parallel.step import pad_models
 from bayesian_ensembling_tpu_torch.schemes import Barycentre
 from bayesian_ensembling_tpu_torch.utils.profiles import resolve_profile
 from bayesian_ensembling_tpu_torch.weights import CRPSWeight
@@ -46,19 +52,159 @@ ALL_SSPS = ("ssp119", "ssp126", "ssp245", "ssp370", "ssp434", "ssp460", "ssp585"
 
 
 def default_data_dir() -> str:
-    raise not_ported("pipeline.default_data_dir (the netCDF data layout)", "A7b")
+    """Resolve the GMST data directory.
+
+    Priority: ``$BET_DATA_DIR`` > ``experiments/data`` beside the package.
+    The layout is the reference's ``experiments/data``: ``obs/gmst/*.nc``
+    and ``gmst/<scenario>/*.nc``.
+    """
+    env = os.environ.get("BET_DATA_DIR")
+    if env:
+        if not os.path.isdir(env):
+            raise FileNotFoundError(
+                f"BET_DATA_DIR={env!r} is not a directory; expected the "
+                "layout of the reference's experiments/data "
+                "(obs/gmst/*.nc and gmst/<scenario>/*.nc)."
+            )
+        return env
+    here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cand = os.path.join(here, "experiments", "data")
+    if os.path.isdir(cand):
+        return cand
+    raise FileNotFoundError(
+        "GMST data directory not found: set BET_DATA_DIR to a directory "
+        "containing obs/gmst/*.nc and gmst/<scenario>/*.nc (layout of the "
+        "reference's experiments/data)."
+    )
 
 
-def load_observations(*args, **kwargs) -> ProcessModel:
-    raise not_ported("pipeline.load_observations (the netCDF reader)", "A7b")
+_OBS_FILE = "obs/gmst/HadCRUT.5.0.1.0.analysis.anomalies_gmst.nc"
 
 
-def load_scenario(*args, **kwargs) -> tp.Tuple[ModelCollection, ModelCollection]:
-    raise not_ported("pipeline.load_scenario (the netCDF reader)", "A7b")
+def _model_name(path: str) -> str:
+    return "_".join(os.path.basename(path).split("_")[:2])
 
 
-def load_packed_scenarios(*args, **kwargs):
-    raise not_ported("pipeline.load_packed_scenarios (the netCDF reader)", "A7b")
+_OBS_TIME_CACHE: tp.Dict[str, np.ndarray] = {}
+
+
+def _obs_time(data_dir: str) -> tp.Optional[np.ndarray]:
+    """HadCRUT5 time coordinate, parsed once per data directory.
+
+    Every scenario load needs it for the calendar collocation.  Existence is
+    re-checked on every call (an observations file created after the first
+    lookup must be seen), and the cached vector is read-only so that one
+    consumer cannot corrupt every scenario's coordinates."""
+    obs_path = os.path.join(data_dir, _OBS_FILE)
+    if not os.path.exists(obs_path):
+        return None
+    cached = _OBS_TIME_CACHE.get(obs_path)
+    if cached is None:
+        cached = np.asarray(netcdf.open_dataarray(obs_path, name="tas").time)
+        cached.setflags(write=False)
+        _OBS_TIME_CACHE[obs_path] = cached
+    return cached
+
+
+def load_observations(
+    data_dir: tp.Optional[str] = None, resample_freq: tp.Optional[str] = "Y"
+) -> ProcessModel:
+    """HadCRUT5 GMST anomalies, resampled (annual by default).
+
+    ``resample_freq=None`` keeps the native monthly resolution (T = 1980).
+    The result is numpy-backed; the device enters at ``fit``.
+    """
+    data_dir = data_dir or default_data_dir()
+    da = netcdf.open_dataarray(os.path.join(data_dir, _OBS_FILE), name="tas")
+    if resample_freq is None:
+        return ProcessModel(da, "Observations")
+    vals, new_time = timeutils.resample_mean(da.values, da.time, resample_freq, time_axis=1)
+    coords = dict(da.coords)
+    coords["time"] = new_time
+    return ProcessModel(DimArray(vals, da.dims, coords, name=da.name), "Observations")
+
+
+def load_scenario(
+    ssp: str,
+    data_dir: tp.Optional[str] = None,
+    resample_freq: tp.Optional[str] = "Y",
+    collocate_obs_time: bool = True,
+) -> tp.Tuple[ModelCollection, ModelCollection]:
+    """Load (historical, ssp) anomaly collections for one scenario.
+
+    Only models present in BOTH the historical and the SSP directory are
+    kept; historical anomalies define each model's climatology, which is
+    then applied to its SSP run.  ``resample_freq`` is any calendar
+    frequency of ``io.timeutils.resample_mean`` ('M'/'Q'/'Y'); ``None``
+    keeps the native monthly resolution (T = 1980 hist / 1032 SSP).
+
+    ``collocate_obs_time`` reproduces the reference's calendar collocation:
+    model calendars differ from HadCRUT5's in day-of-month conventions, so
+    a historical model's time axis is overwritten with the observations'
+    when the lengths match.  Resampled labels coincide anyway; the native
+    monthly resolution needs it for the weighters' time-alignment check.
+    """
+    data_dir = data_dir or default_data_dir()
+    hist_files = {
+        _model_name(p): p
+        for p in sorted(glob.glob(os.path.join(data_dir, "gmst/historical/*.nc")))
+    }
+    ssp_files = {
+        _model_name(p): p
+        for p in sorted(glob.glob(os.path.join(data_dir, f"gmst/{ssp}/*.nc")))
+    }
+    common = sorted(set(hist_files) & set(ssp_files))
+    if not common:
+        raise FileNotFoundError(f"no overlapping models for {ssp} under {data_dir}")
+
+    obs_time = _obs_time(data_dir) if collocate_obs_time else None
+
+    hist_models, ssp_models = [], []
+    for name in common:
+        hist_da = netcdf.open_dataarray(hist_files[name], name="tas")
+        if obs_time is not None and hist_da.time.shape == obs_time.shape:
+            coords = dict(hist_da.coords)
+            coords["time"] = obs_time
+            hist_da = DimArray(hist_da.values, hist_da.dims, coords, name=hist_da.name)
+        hist_anom = ProcessModel(hist_da, name).calculate_anomaly(resample_freq=resample_freq)
+        hist_models.append(hist_anom)
+
+        ssp_da = netcdf.open_dataarray(ssp_files[name], name="tas")
+        ssp_models.append(ProcessModel(ssp_da, name).calculate_anomaly(
+            climatology=hist_anom.climatology, resample_freq=resample_freq
+        ))
+
+    return ModelCollection(hist_models), ModelCollection(ssp_models)
+
+
+def load_packed_scenarios(
+    data_dir: tp.Optional[str] = None,
+    resample_freq: tp.Optional[str] = "Y",
+    ssps: tp.Optional[tp.Sequence[str]] = None,
+):
+    """Load EVERY scenario and pack them into one merged batch, padded to a
+    common ``(S, M, R, T)`` layout for
+    ``parallel.step.ensemble_multi_scenario_step``.
+
+    Returns ``(hb, hm, sb, sm, model_masks, names)``: numpy arrays stacked
+    over the scenario axis plus the scenario name tuple.  ``hb/sb`` are the
+    zero-padded realisation blocks, ``hm/sm`` the realisation masks, and
+    ``model_masks`` zeroes the padded model slots (see
+    ``parallel.step.pad_models``).
+    """
+    names = tuple(ssps) if ssps else ALL_SSPS
+    scenarios = [load_scenario(ssp, data_dir, resample_freq=resample_freq) for ssp in names]
+    m_max = max(len(h) for h, _ in scenarios)
+    r_max = max(max(h.max_realisations, s.max_realisations) for h, s in scenarios)
+    packed = []
+    for hist, ssp_mc in scenarios:
+        hb, hm = hist.padded_stack(r_target=r_max)
+        sb, sm = ssp_mc.padded_stack(r_target=r_max)
+        hb, hm, mmask = pad_models(hb, hm, m_max)
+        sb, sm, _ = pad_models(sb, sm, m_max)
+        packed.append((hb, hm, sb, sm, mmask))
+    stacked = tuple(np.stack([p[i] for p in packed]) for i in range(5))
+    return stacked + (names,)
 
 
 @dataclasses.dataclass

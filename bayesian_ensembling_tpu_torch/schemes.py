@@ -95,12 +95,18 @@ def _weights_block(collection: ModelCollection, weights: DimArray) -> np.ndarray
 def _moments_posterior(mean: np.ndarray, var: np.ndarray, collection: ModelCollection,
                        who: str) -> Posterior:
     """Moments computed on the host, placed where the collection's fitted
-    posteriors are; an unfitted collection's go to the card (without CUDA
-    that raises: nothing falls back to the CPU on its own)."""
+    posteriors are and in their dtype (as the JAX package holds host
+    moments in its default float dtype); an unfitted collection's go to the
+    card in the data's dtype (without CUDA that raises: nothing falls back
+    to the CPU on its own)."""
     fitted = [pm.distribution for pm in collection if pm.distribution is not None]
-    device = fitted[0].gaussian.mean.device if fitted else resolve_device("cuda", who)
-    g = DiagGaussian(mean=torch.as_tensor(mean, device=device),
-                     var=torch.as_tensor(var, device=device))
+    if fitted:
+        like = fitted[0].gaussian.mean
+        device, dtype = like.device, like.dtype
+    else:
+        device, dtype = resolve_device("cuda", who), None
+    g = DiagGaussian(mean=torch.as_tensor(mean, dtype=dtype, device=device),
+                     var=torch.as_tensor(var, dtype=dtype, device=device))
     return Posterior(gaussian=g, template=collection[0].blank_template())
 
 

@@ -111,6 +111,29 @@ Phases, in order; any failure exits non-zero:
    ``GPDTW3D(mode="svgp")`` on the 8 x 8 sub-grid, float64, card against
    CPU (1e-3 degC).
 
+11. The perfect-model test and serving, on phase 9's float32 posteriors
+   (the campaign CLI's ``--batched --prefit-dir`` form): ``batched_pmt``
+   for all 7 scenarios x the 5 batched weight kinds under the campaign's
+   shape bucket ``pad_shape = (16, 29)`` (and the compat and mixture sigma
+   modes and ``include_sim`` for CRPS on scenario 0), float32 on the card
+   against float64 on the CPU at the same posteriors (rmse, w2 and crps
+   within 1e-3 degC, nll within 1e-3 relative), every call's launches
+   checked (the loglik table: one Cholesky and two vector solves); padded
+   against unpadded on the smallest scenario; the fold loop
+   (``PerfectModelTest.run(use_prefit_models=True)``'s folds, a Cholesky
+   and two vector solves each) against ``batched_pmt`` on the largest
+   scenario (1e-4 relative); the loop with fresh ``GPDTW1D`` fits per fold
+   (16 folds x 3 fits, 500 Adam steps: phase 9's depth, cut from the CLI's
+   1,000), float32 against float64 on the card (0.01 degC on rmse, w2 and
+   crps; nll printed), every launch counter checked and the run timed;
+   then ``serve.ProjectionService.from_results`` on phase 9's results, a
+   save / load round trip and an HTTP server on a localhost port answering
+   a projection, a trajectory and a bad query (400), each held against the
+   barycentre moments; and ``serve.build_gridded_artifacts`` at its
+   defaults (12 x 24 cells, 5 models, 10 realisations, T = 86, 500 Adam
+   steps) with its launch counters, ``project_point`` at every cell and
+   ``map_grid`` held against the posterior it served.
+
 The last lines are a JSON summary of the kernels, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
 """
@@ -1419,7 +1442,9 @@ def _library_options(torch, bt, dev, hist, ssp, observations, weights):
 
 def run_library(torch, bt, inputs, dev, step_out, report, nits=LIBRARY_NITS):
     """Phase 9: the library API at full width (see the module docstring).
-    ``step_out`` is phase 4's output."""
+    ``step_out`` is phase 4's output.  Returns ``(ok, fitted, results)``:
+    the float32 pass's fitted (historical, SSP) collections and
+    ``ScenarioResult`` objects, which phase 11 reuses."""
     ok = True
     totals = dict.fromkeys(bt.launch_counts(), 0)
     expected = {"dba_update": 2 * 10, "dba_update_split": 0, "chol_solve": 2 * (nits + 1),
@@ -1493,7 +1518,7 @@ def run_library(torch, bt, inputs, dev, step_out, report, nits=LIBRARY_NITS):
         f"scheme {scheme_s:.3f} s ({scheme_s / wall:.1%}); weights and scheme timed alone")
     if not ok:
         print("chip_smoke: the library API failed its check", file=sys.stderr)
-    return ok
+    return ok, fitted, res32
 
 
 
@@ -1955,6 +1980,315 @@ def run_gridded_library(torch, bt, dev, block, obs):
     return ok
 
 
+# --------------------------------------------------------- validation, serving
+# Phase 11: the perfect-model test and the served projections on phase 9's
+# float32 posteriors (7 scenarios, 12 to 16 models, R up to 29, T = 165 / 86).
+PMT_KINDS = ("crps", "loglik", "ksd", "inverse_square", "uniform")
+PMT_PAD = (16, 29)  # the campaign CLI's shape bucket for the 7 scenarios
+PMT_DEGC = 1e-3  # f32 card vs f64 CPU at the same posteriors: rmse, crps, w2 (degC)
+PMT_NLL_REL = 1e-3  # ... and nll, relative
+PMT_LOOP_REL = 1e-4  # the fold loop against the batched function, f32, relative
+PMT_FIT_NITS = 500  # fresh fits per fold: phase 9's depth, cut from the CLI's 1,000
+PMT_PAD_REL = 1e-5  # padded against unpadded, f32 on the card, relative
+SERVE_YEAR = 2100
+Z95 = 1.959963984540054  # two-sided 95% Gaussian quantile
+# Columns of batched_pmt's (M, 8) scores: nll, rmse, w2, crps for the
+# barycentre, then for the multi-model mean.
+PMT_COLUMNS = ("nll", "rmse", "w2", "crps", "nll_mmm", "rmse_mmm", "w2_mmm", "crps_mmm")
+NLL_COLS, DEGC_COLS = (0, 4), (1, 2, 3, 5, 6, 7)
+
+
+def pmt_gaps(got, want):
+    """(max |d| over the rmse / w2 / crps columns in degC, max |d| of each
+    nll column relative to that column's largest |value|, at least 1)
+    between two (M, 8) score arrays."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    degc = float(np.abs(got[:, DEGC_COLS] - want[:, DEGC_COLS]).max())
+    want_nll = want[:, NLL_COLS]
+    scale = np.maximum(np.abs(want_nll).max(axis=0), 1.0)
+    nll = float((np.abs(got[:, NLL_COLS] - want_nll) / scale).max())
+    return degc, nll
+
+
+def col_rel_gap(got, want):
+    """Largest |d| of each column over that column's largest |value|."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    scale = np.maximum(np.abs(want).max(axis=0), 1e-12)
+    return float((np.abs(got - want) / scale).max())
+
+
+def pmt_launches(kind, n_folds=0, n_models=0):
+    """Expected launches of one ``batched_pmt`` call of ``kind`` on
+    full-covariance posteriors (the loglik table: one Cholesky of all the
+    models' covariances and two forward-only vector solves), plus those of
+    ``n_folds`` library ``LogLikelihoodWeight`` calls (the same three a
+    fold)."""
+    table = 1 if kind == "loglik" else 0
+    return {"dba_update": 0, "dba_update_split": 0, "chol_solve": 0, "tri_inv": 0,
+            "chol": table + n_folds, "dtw_cost": 0, "solve_vec": 2 * (table + n_folds)}
+
+
+def fold_fit_launches(n_folds, nits, dba_iterations=10):
+    """Expected launches of the fold loop with fresh ``GPDTW1D`` fits: three
+    fits a fold (the remaining hindcast models, the remaining forecast
+    models, the pseudo truth), each ``dba_iterations`` DBA updates, a
+    Cholesky-solve per Adam step and for the posterior and a triangular
+    inverse per Adam step; then the fold's ``LogLikelihoodWeight``."""
+    out = pmt_launches("uniform", n_folds=n_folds)
+    out.update(dba_update=3 * n_folds * dba_iterations, chol_solve=3 * n_folds * (nits + 1),
+               tri_inv=3 * n_folds * nits)
+    return out
+
+
+def _get_json(url):
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=30) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def serve_roundtrip(svc_cls, results, directory, year=SERVE_YEAR):
+    """``ProjectionService.from_results`` on ``results`` (name ->
+    ``ScenarioResult``), a save / load round trip through ``directory``, and
+    an HTTP server on an ephemeral localhost port answering a projection,
+    a trajectory and one bad query (400); every answer held against the
+    barycentre moments.  Returns ``(ok, lines)``; the server is shut down."""
+    import threading
+
+    svc = svc_cls.from_results(results)
+    svc.save(directory)
+    loaded = svc_cls.load(directory)
+    lines = [f"saved and loaded {len(loaded.scenarios())} artifacts"]
+    ok = loaded.scenarios() == sorted(results)
+    name = sorted(results)[0]
+    post = results[name].barycentre
+    mean = post.gaussian.mean.detach().double().cpu().numpy()
+    std = np.sqrt(post.gaussian.variance.detach().double().cpu().numpy())
+    years = post.template.time.astype("datetime64[Y]").astype(int) + 1970
+    k = int(np.argmin(np.abs(years - year)))
+    server = loaded.make_http_server("127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        base = f"http://127.0.0.1:{server.server_address[1]}"
+        code, listed = _get_json(f"{base}/scenarios")
+        ok &= code == 200 and listed["scenarios"] == sorted(results)
+        code, proj = _get_json(f"{base}/project?scenario={name}&year={year}")
+        gap = max(abs(proj["mean"] - mean[k]), abs(proj["hi"] - (mean[k] + Z95 * std[k])),
+                  abs(proj["lo"] - (mean[k] - Z95 * std[k])))
+        ok &= code == 200 and proj["year"] == int(years[k]) and gap < 1e-9
+        lines.append(f"/project {name} {proj['year']}: {proj['mean']:.4f} "
+                     f"[{proj['lo']:.4f}, {proj['hi']:.4f}], max |d| from the barycentre {gap:.1e}")
+        code, traj = _get_json(f"{base}/trajectory?scenario={name}")
+        tgap = max(float(np.abs(np.asarray(traj["mean"]) - mean).max()),
+                   float(np.abs(np.asarray(traj["std"]) - std).max()))
+        ok &= code == 200 and len(traj["years"]) == len(mean) and tgap < 1e-9
+        lines.append(f"/trajectory {name}: {len(traj['years'])} steps, max |d| {tgap:.1e}")
+        code, bad = _get_json(f"{base}/project?scenario=no-such-scenario&year={year}")
+        ok &= code == 400 and "unknown scenario" in bad["error"]
+        lines.append(f"/project of an unknown scenario: {code} ({bad['error'][:40]}...)")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    ok &= not thread.is_alive()
+    return bool(ok), lines
+
+
+class recorded_gridded_posteriors:
+    """Within the ``with`` block, every ``ProjectionService.from_gridded``
+    call also records the posteriors it was built from (the served ones)."""
+
+    def __init__(self, svc_cls):
+        self.svc_cls, self.posteriors = svc_cls, {}
+
+    def __enter__(self):
+        original = self.original = self.svc_cls.__dict__["from_gridded"]
+
+        def from_gridded(cls, posteriors):
+            self.posteriors.update(posteriors)
+            return original.__func__(cls, posteriors)
+
+        self.svc_cls.from_gridded = classmethod(from_gridded)
+        return self
+
+    def __exit__(self, *exc):
+        self.svc_cls.from_gridded = self.original
+        return False
+
+
+def gridded_serve_gap(svc, name, post, year=SERVE_YEAR):
+    """Largest |d| between ``project_point`` at every cell / ``map_grid`` of
+    the served artifact and the posterior it was built from."""
+    mean = post.mean.values.astype(np.float64)
+    std = np.sqrt(post.variance.values.astype(np.float64))
+    years = post.template.time.astype("datetime64[Y]").astype(int) + 1970
+    k = int(np.argmin(np.abs(years - year)))
+    lats = post.template.get_coord("latitude")
+    lons = post.template.get_coord("longitude")
+    gap = 0.0
+    for i, la in enumerate(lats):
+        for j, lo in enumerate(lons):
+            p = svc.project_point(name, year, float(la), float(lo))
+            gap = max(gap, abs(p["mean"] - mean[k, i, j]),
+                      abs(p["hi"] - (mean[k, i, j] + Z95 * std[k, i, j])))
+    grid = svc.map_grid(name, year)
+    gap = max(gap, float(np.abs(np.asarray(grid["mean"]) - mean[k]).max()),
+              float(np.abs(np.asarray(grid["std"]) - std[k]).max()))
+    return gap
+
+
+def run_validation(torch, bt, dev, inputs, fitted, results, report):
+    """Phase 11: the perfect-model test and serving (see the module
+    docstring).  ``fitted`` and ``results`` are phase 9's float32 fitted
+    (historical, SSP) collections and ``ScenarioResult`` objects."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    ok = True
+    totals = dict.fromkeys(bt.launch_counts(), 0)
+
+    def counted(expected, label):
+        nonlocal ok
+        launches = bt.launch_counts()
+        good = launches == expected
+        if not good:
+            log(f"[validation] {label}: launches {launches}, expected {expected}")
+        ok &= good
+        for k_, v in launches.items():
+            totals[k_] += v
+
+    # (a) batched_pmt, every weight kind under the campaign's shape bucket,
+    # float32 on the card against float64 on the CPU at the same posteriors.
+    t0 = time.perf_counter()
+    worst = {}
+    card_s = cpu_s = 0.0
+    for si, (hist, ssp) in enumerate(fitted):
+        hist64, ssp64 = _posteriors_f64_on_cpu(bt, hist), _posteriors_f64_on_cpu(bt, ssp)
+        variants = [(kind, {}) for kind in PMT_KINDS]
+        if si == 0:
+            variants += [("crps", {"sigma_mode": "compat"}), ("crps", {"sigma_mode": "mixture"}),
+                         ("crps", {"include_sim": True})]
+        for kind, kw in variants:
+            bt.reset_launch_counts()
+            dt, got = _wall(torch, lambda: bt.batched_pmt(hist, ssp, kind, pad_shape=PMT_PAD, **kw))
+            card_s += dt
+            counted(pmt_launches(kind), f"scenario {si} {kind} {kw}")
+            t1 = time.perf_counter()
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")  # compat's cap warning, on both sides alike
+                want = bt.batched_pmt(hist64, ssp64, kind, pad_shape=PMT_PAD, **kw)
+            cpu_s += time.perf_counter() - t1
+            degc, nll = pmt_gaps(got, want)
+            label = kind + "".join(f" {k_}={v}" for k_, v in kw.items())
+            prev = worst.get(label, (0.0, 0.0, 0, ""))
+            col = PMT_COLUMNS[int(np.argmax(np.abs(np.asarray(got, np.float64) - want).max(
+                axis=0) * np.isin(np.arange(8), DEGC_COLS)))]
+            worst[label] = (max(prev[0], degc), max(prev[1], nll), prev[2] + 1,
+                            col if degc >= prev[0] else prev[3])
+            ok &= bool(np.isfinite(got).all()) and degc < PMT_DEGC and nll < PMT_NLL_REL
+        if si == 0:
+            log(f"[validation] scenario 0 ({len(hist)} models), {label}: means "
+                "over the folds: " + ", ".join(
+                    f"{n} {v:.4f}" for n, v in zip(PMT_COLUMNS, want.mean(axis=0))))
+    for label, (degc, nll, n, col) in worst.items():
+        log(f"[validation] batched_pmt {label}, pad_shape {PMT_PAD}: f32 card vs f64 CPU over "
+            f"{n} scenario(s): max |d| rmse/w2/crps {degc:.3e} degC ({col}; gate {PMT_DEGC}), "
+            f"max rel |d| nll {nll:.3e} (gate {PMT_NLL_REL})")
+    log(f"[validation] (a) {sum(v[2] for v in worst.values())} batched_pmt calls: card "
+        f"{card_s:.2f} s, f64 CPU reference {cpu_s:.2f} s, all {time.perf_counter() - t0:.1f} s")
+    sizes = [len(h) for h, _ in fitted]
+    si = int(np.argmin(sizes))
+    hist, ssp = fitted[si]
+    bt.reset_launch_counts()
+    plain = bt.batched_pmt(hist, ssp, "loglik")
+    padded = bt.batched_pmt(hist, ssp, "loglik", pad_shape=PMT_PAD)
+    counted(pmt_launches("loglik", n_folds=1), "padded vs unpadded")
+    gap = col_rel_gap(padded, plain)
+    log(f"[validation] scenario {si} ({sizes[si]} models) loglik: padded to {PMT_PAD} vs unpadded, "
+        f"max rel |d| {gap:.3e} (gate {PMT_PAD_REL})")
+    ok &= gap < PMT_PAD_REL
+
+    # (b) the fold loop on the same prefit posteriors against the batched
+    # function: LogLikelihoodWeight on every fold (a Cholesky and two vector
+    # solves each), the largest scenario.
+    si = int(np.argmax(sizes))
+    hist, ssp = fitted[si]
+    pmt = bt.PerfectModelTest(hist, ssp, None, bt.LogLikelihoodWeight, bt.Barycentre,
+                              f"scenario{si}")
+    bt.reset_launch_counts()
+    dt_loop, (names, loop) = _wall(torch, lambda: pmt._fold_scores(use_prefit_models=True))
+    counted(pmt_launches("uniform", n_folds=len(names)), "fold loop, prefit")
+    bt.reset_launch_counts()
+    dt_b, batched = _wall(torch, lambda: bt.batched_pmt(hist, ssp, "loglik"))
+    counted(pmt_launches("loglik"), "batched, for the loop")
+    gap = col_rel_gap(loop, batched)
+    log(f"[validation] (b) scenario {si} ({len(names)} folds), LogLikelihoodWeight: fold loop "
+        f"{dt_loop:.3f} s vs batched {dt_b * 1e3:.1f} ms, f32 on the card; max rel |d| {gap:.3e} "
+        f"(gate {PMT_LOOP_REL}); {len(names)} B4 and {2 * len(names)} B5 launches in the loop")
+    ok &= gap < PMT_LOOP_REL and names == hist.model_names
+
+    # (c) the harness with fresh fits per fold (16 folds x 3 GPDTW1D fits),
+    # float32 and float64 on the card.
+    built, _ = library_scenarios(bt, inputs)
+    scores, walls = {}, {}
+    for dtype in (torch.float32, torch.float64):
+        raw_hist, raw_ssp = built[si]
+        fresh = bt.PerfectModelTest(raw_hist, raw_ssp, lambda: bt.GPDTW1D(dtype=dtype),
+                                    bt.LogLikelihoodWeight, bt.Barycentre, f"scenario{si}")
+        bt.reset_launch_counts()
+        walls[dtype], (_, scores[dtype]) = _wall(torch, lambda: fresh._fold_scores(
+            n_optim_nits=PMT_FIT_NITS, device=dev))
+        counted(fold_fit_launches(len(raw_hist), PMT_FIT_NITS), f"fresh fits {dtype}")
+        ok &= all(pm.distribution is None for pm in raw_hist) and bool(
+            np.isfinite(scores[dtype]).all())
+    degc, nll = pmt_gaps(scores[torch.float32], scores[torch.float64])
+    f32, f64 = scores[torch.float32], scores[torch.float64]
+    log(f"[validation] (c) fresh fits, {len(f32)} folds x 3 GPDTW1D fits x {PMT_FIT_NITS} Adam steps: "
+        f"f32 {walls[torch.float32]:.2f} s, f64 {walls[torch.float64]:.2f} s on the card; "
+        f"max |d| rmse/w2/crps {degc:.3e} degC (gate {PARITY_DEGC}); nll f32 "
+        f"{f32[:, 0].mean():.4f} vs f64 {f64[:, 0].mean():.4f} (mean over folds, max rel |d| "
+        f"{nll:.3e}, not gated)")
+    ok &= degc < PARITY_DEGC
+    report["validation_launches"] = dict(totals)
+
+    # (d) serving: phase 9's results, then the gridded artifacts.
+    serve = bt.serve
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        good, lines = serve_roundtrip(serve.ProjectionService,
+                                      {r.ssp: r for r in results}, os.path.join(tmp, "gmst"))
+        for line in lines:
+            log(f"[serve] {line}")
+        log(f"[serve] from_results x {len(results)}, save / load and HTTP: "
+            f"{time.perf_counter() - t0:.2f} s; {'as expected' if good else 'FAILED'}")
+        ok &= good
+        bt.reset_launch_counts()
+        with recorded_gridded_posteriors(serve.ProjectionService) as rec:
+            dt, svc = _wall(torch, lambda: serve.build_gridded_artifacts(
+                os.path.join(tmp, "gridded"), device=dev))
+        launches = bt.launch_counts()
+        report["serve_launches"] = launches
+        m, nits = 5, 500  # build_gridded_artifacts' defaults: 5 models, 500 Adam steps
+        expected = {"dba_update": 10 * m, "dba_update_split": 0, "chol_solve": m * (nits + 1),
+                    "tri_inv": m * (nits + 1), "chol": 0, "dtw_cost": 0, "solve_vec": 0}
+        loaded = serve.ProjectionService.load(os.path.join(tmp, "gridded"))
+        gap = gridded_serve_gap(loaded, "gridded", rec.posteriors["gridded"])
+        log(f"[serve] build_gridded_artifacts (12 x 24 cells, 5 models, 10 realisations, T = 86, "
+            f"{nits} Adam steps) on the card: {dt:.2f} s; launches {launches} (expected "
+            f"{expected}); project_point at every cell and map_grid vs the served posterior: max "
+            f"|d| {gap:.1e}")
+        ok &= launches == expected and gap < 1e-6
+    log(f"[validation] phase 11: {time.perf_counter() - t_phase:.1f} s")
+    if not ok:
+        print("chip_smoke: the validation or serving phase failed its check", file=sys.stderr)
+    return ok
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of the synthetic inputs")
@@ -2085,11 +2419,16 @@ def main(argv=None):
         return 1
 
     # Phase 9: the library API.
-    if not run_library(torch, bt, inputs, dev, step_out, report):
+    library_ok, fitted, results = run_library(torch, bt, inputs, dev, step_out, report)
+    if not library_ok:
         return 1
 
     # Phase 10: the gridded surface at the 5-degree grid.
     if not run_gridded(torch, bt, dev, report):
+        return 1
+
+    # Phase 11: the perfect-model test and serving, on phase 9's posteriors.
+    if not run_validation(torch, bt, dev, inputs, fitted, results, report):
         return 1
 
     # Each kernel's row: its time and bound at the first shape it was checked
@@ -2128,7 +2467,9 @@ def main(argv=None):
                                  "subgradient": report["subgradient_launches"][name],
                                  "medoid": report["medoid_launches"][name],
                                  "library": report["library_launches"][name],
-                                 "gridded": report["gridded_launches"][name]},
+                                 "gridded": report["gridded_launches"][name],
+                                 "validation": report["validation_launches"][name],
+                                 "serve": report["serve_launches"][name]},
             "max_abs_err": max(r["err"] for r in report[name]),
             "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": main_shape["library_ms"],

@@ -285,9 +285,9 @@ def test_npz_checkpoint_loads_in_the_other_package(tmp_path, kind):
         assert sorted(a.files) == sorted(b.files)
         for k in a.files:
             np.testing.assert_array_equal(a[k], b[k])
-    with pytest.raises(NotImplementedError, match="A7b"):
+    with pytest.raises(NotImplementedError, match="A7b-2"):
         tmc.save(str(tmp_path / "ckpt"), backend="orbax")
-    with pytest.raises(NotImplementedError, match="A7b"):
+    with pytest.raises(NotImplementedError, match="A7b-2"):
         tbet.ModelCollection.load(str(tmp_path), device="cpu")
     with pytest.raises(ValueError, match="backend"):
         tmc.save(str(tmp_path / "x"), backend="pickle")
@@ -304,8 +304,8 @@ def test_posterior_container():
     assert post.sample().shape == (16,)
     assert post.log_prob(post.mean.values).shape == ()
     assert tmc[0].posterior is post
-    with pytest.raises(NotImplementedError, match="A7b"):
-        post.plot_temporally()
+    ax = post.plot_temporally(n_sigma=(2,))  # the plotters are ported
+    assert len(ax.lines) == 1 and len(ax.collections) == 1
     jpost = jbet.Posterior(jd.DiagGaussian(jnp.arange(16.0), jnp.ones(16)),
                            build("jax", model_arrays(0))[0].blank_template())
     back = convert.posterior_from_jax(jpost.to_arrays(), jpost.template, device="cpu")
@@ -784,16 +784,20 @@ def test_run_scenario_profiles(monkeypatch):
 
 
 def test_unported_pipeline_entry_points_name_their_roadmap_item():
-    for fn in (tpipeline.default_data_dir, tpipeline.load_observations, tpipeline.load_scenario,
-               tpipeline.load_packed_scenarios):
-        with pytest.raises(NotImplementedError, match="A7b"):
-            fn()
-    # The gridded pipeline is ported: it takes every argument the JAX one does.
+    # Every pipeline entry point is ported now (the loaders' parity is in
+    # test_torch_io.py): each takes every argument the JAX one does, and
+    # what is left unported names its item.
     import inspect
 
-    jparams = inspect.signature(jpipeline.run_gridded_scenario).parameters
-    assert set(jparams) <= set(inspect.signature(tpipeline.run_gridded_scenario).parameters)
+    for name in ("default_data_dir", "load_observations", "load_scenario",
+                 "load_packed_scenarios", "run_scenario", "run_gridded_scenario"):
+        jparams = inspect.signature(getattr(jpipeline, name)).parameters
+        tparams = inspect.signature(getattr(tpipeline, name)).parameters
+        assert list(jparams) == [p for p in tparams if p != "device"], name
     assert tpipeline.ALL_SSPS == jpipeline.ALL_SSPS
+    _, tmc = shared_posteriors("diag")
+    with pytest.raises(NotImplementedError, match="A7b-2"):
+        tmc.save("unused", backend="orbax")
 
 
 @pytest.mark.parametrize("sigma_mode", ["w2", "mixture"])
