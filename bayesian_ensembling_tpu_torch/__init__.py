@@ -17,11 +17,15 @@ annual 7-SSP step; every DBA method, optimiser, fit route and weight kind
 of the JAX step), :func:`run_dedup_campaign` (the native-monthly campaign,
 each unique model fitted once) and :func:`refined_multi_scenario_f64` (the
 float64 posterior and tail at given hyperparameters); the perfect-model
-test, :class:`PerfectModelTest` and :func:`batched_pmt`; and the serving
-layer, ``serve.ProjectionService`` with ``serve.build_artifacts``.
+test, :class:`PerfectModelTest` and :func:`batched_pmt`; the serving
+layer, ``serve.ProjectionService`` with ``serve.build_artifacts``; and the
+sharded surfaces on a ``torch.distributed`` device mesh,
+:func:`make_sharded_step`, :func:`make_sharded_multi_scenario_step`,
+:func:`make_sharded_dedup_campaign`, :func:`sharded_gridded_marginals` and
+:func:`make_sharded_gridded_step` (``parallel/mesh.py``).
 """
 
-from bayesian_ensembling_tpu_torch import _build, metrics, ops, pipeline
+from bayesian_ensembling_tpu_torch import _build, metrics, ops, parallel, pipeline
 from bayesian_ensembling_tpu_torch.convert import (
     collection_from_jax,
     gp_params_from_jax,
@@ -48,6 +52,7 @@ from bayesian_ensembling_tpu_torch.ops.dtw import (
 from bayesian_ensembling_tpu_torch.ops.dtw_cuda import dba_update_batch, squared_dtw_cost_batch
 from bayesian_ensembling_tpu_torch.ops.gp import (
     BatchedGPParams,
+    GPParams,
     fit_gp_batch,
     fit_gp_batch_chunked,
     fit_gp_batch_dispatch,
@@ -73,12 +78,16 @@ from bayesian_ensembling_tpu_torch.parallel.campaign import (
     run_dedup_campaign,
 )
 from bayesian_ensembling_tpu_torch.parallel.gridded import (
+    coarse_fit_params,
     coarse_warm_start,
     gridded_ensemble_step,
     gridded_tail,
+    make_sharded_gridded_step,
     pad_cells,
     refined_gridded_f64,
+    sharded_gridded_marginals,
 )
+from bayesian_ensembling_tpu_torch.parallel.mesh import collective_counts
 from bayesian_ensembling_tpu_torch.parallel.step import (
     WEIGHT_KINDS,
     chunked_marginals,
@@ -86,6 +95,8 @@ from bayesian_ensembling_tpu_torch.parallel.step import (
     ensemble_multi_scenario_step,
     ensemble_scenario_step,
     fused_raw_weights,
+    make_sharded_multi_scenario_step,
+    make_sharded_step,
     multi_scenario_tail,
     pad_models,
     refined_multi_scenario_f64,
@@ -167,11 +178,14 @@ __all__ = [
     "__version__",
     "BatchedGPParams",
     "DedupCampaign",
+    "GPParams",
     "WEIGHT_KINDS",
     "cholesky_batched",
     "cholesky_solve_fused",
     "chunked_marginals",
+    "coarse_fit_params",
     "coarse_warm_start",
+    "collective_counts",
     "dba",
     "dba_batch",
     "dba_subgradient_batch",
@@ -193,6 +207,9 @@ __all__ = [
     "launch_counts",
     "linalg_path",
     "make_sharded_dedup_campaign",
+    "make_sharded_gridded_step",
+    "make_sharded_multi_scenario_step",
+    "make_sharded_step",
     "multi_scenario_tail",
     "nlml_terms",
     "nlml_terms_blocked",
@@ -207,6 +224,7 @@ __all__ = [
     "reset_launch_counts",
     "route_counts",
     "run_dedup_campaign",
+    "sharded_gridded_marginals",
     "squared_dtw",
     "squared_dtw_cost_batch",
     "tri_inv_batched",
@@ -224,7 +242,8 @@ def route_counts() -> dict[str, int]:
 
 
 def reset_launch_counts() -> None:
-    """Set every kernel's launch count and every route count to 0."""
-    for counter in (_build.LAUNCHES, _build.ROUTES):
+    """Set every kernel's launch count, every route count and every
+    collective count (:func:`collective_counts`) to 0."""
+    for counter in (_build.LAUNCHES, _build.ROUTES, parallel.mesh.COLLECTIVES):
         for name in counter:
             counter[name] = 0

@@ -7,14 +7,17 @@ subgradient DBA), the batched fit on the exact NLML (Adam or the per-model
 damped BFGS; merged, host-chunked or coarse-to-fine in time), the posterior
 marginals and the full-covariance posterior, and the single-model API
 (:func:`nlml`, :func:`posterior`, :func:`posterior_marginals`,
-:func:`fit_gp`) as batches of one.
+:func:`fit_gp`) on the JAX package's arguments: a :class:`GPParams` of one
+model and a kernel callable.
 
     nlml = 0.5 y^T (K + D)^-1 y + 0.5 logdet(K + D) + T/2 log 2pi
 
 Every batched function takes ``(M, ...)`` tensors, one row per model, and
 runs on the device its inputs are on.  The single-model functions take
-unbatched ``x (T, D)``, ``y (T,)``, ``noise_var (T,)`` and a
-:class:`BatchedGPParams` of one model.
+unbatched ``x (T, D)``, ``y (T,)``, ``noise_var (T,)``, a :class:`GPParams`
+(or a :class:`BatchedGPParams` of one model) and ``kernel``: a callable
+``(params, x1, x2) -> K`` such as :func:`matern32` / :func:`rbf`, or a
+kernel's name; ``kernel_name=`` names it too.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from bayesian_ensembling_tpu_torch.ops.linalg_blocked import nlml_terms_blocked
 
 __all__ = [
     "BatchedGPParams",
+    "GPParams",
     "softplus",
     "init_params",
     "matern32",
@@ -96,6 +100,42 @@ class BatchedGPParams(nn.Module):
         return softplus(self.raw_variance)
 
 
+class GPParams(nn.Module):
+    """Unconstrained kernel hyperparameters of ONE model, each a 0-d tensor
+    (the JAX package's ``GPParams``): what :func:`fit_gp` returns and
+    :func:`nlml`, :func:`posterior` and :func:`posterior_marginals` take."""
+
+    def __init__(self, raw_lengthscale, raw_variance):
+        super().__init__()
+        raw_lengthscale, raw_variance = torch.as_tensor(raw_lengthscale), torch.as_tensor(raw_variance)
+        if raw_lengthscale.dim() or raw_variance.dim():
+            raise ValueError(
+                "expected two 0-d tensors (one model), got shapes "
+                f"{tuple(raw_lengthscale.shape)} and {tuple(raw_variance.shape)}; "
+                "use BatchedGPParams for a batch"
+            )
+        self.raw_lengthscale = nn.Parameter(raw_lengthscale)
+        self.raw_variance = nn.Parameter(raw_variance)
+
+    @property
+    def lengthscale(self) -> torch.Tensor:
+        return softplus(self.raw_lengthscale)
+
+    @property
+    def variance(self) -> torch.Tensor:
+        return softplus(self.raw_variance)
+
+
+def _as_batch(params):
+    """``params`` as a batch of models: a :class:`GPParams` becomes a view
+    with ``(1,)`` ``lengthscale`` / ``variance`` (differentiable in the
+    leaves); a :class:`BatchedGPParams` is returned as it is."""
+    if isinstance(params, GPParams):
+        return types.SimpleNamespace(lengthscale=params.lengthscale.reshape(1),
+                                     variance=params.variance.reshape(1))
+    return params
+
+
 def _softplus_inv(x: float) -> float:
     return float(math.log(math.expm1(x)))
 
@@ -154,7 +194,8 @@ def get_kernel_precomputed(name: str):
 def _batched_kernel(name: str):
     precompute, apply_fn = _KERNELS_PRE[name]
 
-    def kernel(params: BatchedGPParams, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
+    def kernel(params, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
+        params = _as_batch(params)
         if x1.dim() == 2:  # one model: (N, D) and (P, D)
             return apply_fn(params, precompute(x1[None], x2[None]))[0]
         return apply_fn(params, precompute(x1, x2))
@@ -164,7 +205,8 @@ def _batched_kernel(name: str):
 
 
 #: Matern-3/2 kernel, the reference's emulator kernel: ``(M, N, D)`` and
-#: ``(M, P, D)`` inputs give ``(M, N, P)``; unbatched inputs one matrix.
+#: ``(M, P, D)`` inputs give ``(M, N, P)``; unbatched inputs one matrix
+#: (with a :class:`GPParams`, or a :class:`BatchedGPParams` of one model).
 matern32 = _batched_kernel("matern32")
 #: Squared-exponential kernel, same shapes.
 rbf = _batched_kernel("rbf")
@@ -176,6 +218,20 @@ def get_kernel(name: str):
         return _KERNELS[name]
     except KeyError:
         raise ValueError(f"unknown kernel {name!r}; options: {sorted(_KERNELS)}") from None
+
+
+def _single_kernel(kernel, kernel_name: tp.Optional[str]):
+    """The kernel callable of the single-model API: ``kernel`` (a callable
+    or a name), or the kernel named ``kernel_name``."""
+    if kernel_name is not None:
+        if kernel is not matern32:
+            raise TypeError("pass the kernel as kernel= or as kernel_name=, not both")
+        return get_kernel(kernel_name)
+    if isinstance(kernel, str):
+        return get_kernel(kernel)
+    if not callable(kernel):
+        raise TypeError(f"kernel must be a callable (params, x1, x2) -> K or a name, got {kernel!r}")
+    return kernel
 
 
 def prepare_gp_inputs(
@@ -612,14 +668,31 @@ def posterior_marginals_batch(
     blocked route), as the JAX posterior takes XLA's.  Both products run in
     full float32 on the card (the TPU used HIGHEST)."""
     precompute, apply_fn = get_kernel_precomputed(kernel_name)
-    k = apply_fn(params, precompute(x, x))
+    return _marginals_from_gram(apply_fn(params, precompute(x, x)), y, noise_var, jitter)
+
+
+def _noisy_factor(k, y, noise_var, jitter):
+    """``L`` of ``K + diag(noise) + jitter I`` and ``alpha = (K + ...)^-1 y``,
+    batched: the Cholesky-solve kernel within its size cap."""
     t = k.shape[-1]
     ky = k + torch.diag_embed(noise_var) + jitter * torch.eye(t, dtype=k.dtype, device=k.device)
     l, _, alpha, _ = linalg_cuda.chol_solve_routed(ky, y)
+    return l, alpha
+
+
+def _marginals_from_gram(k, y, noise_var, jitter):
+    l, alpha = _noisy_factor(k, y, noise_var, jitter)
     mean = torch.einsum("bij,bj->bi", k, alpha)
     wk = torch.matmul(linalg_cuda.tri_inv_routed(l), k)
     var = torch.diagonal(k, dim1=-2, dim2=-1) - torch.einsum("bji,bji->bi", wk, wk)
     return mean, torch.clamp(var, min=1e-12)
+
+
+def _posterior_from_gram(k, y, noise_var, jitter):
+    l, alpha = _noisy_factor(k, y, noise_var, jitter)
+    mean = torch.einsum("bij,bj->bi", k, alpha)
+    v = torch.linalg.solve_triangular(l, k, upper=False)
+    return mean, k - torch.matmul(v.mT, v)
 
 
 @torch.no_grad()
@@ -640,58 +713,56 @@ def posterior_batch(
     right-hand side, left to ``torch.linalg`` as the JAX package leaves it
     to XLA.  Both products run in full float32 on the card."""
     precompute, apply_fn = get_kernel_precomputed(kernel_name)
-    k = apply_fn(params, precompute(x, x))
-    t = k.shape[-1]
-    ky = k + torch.diag_embed(noise_var) + jitter * torch.eye(t, dtype=k.dtype, device=k.device)
-    l, _, alpha, _ = linalg_cuda.chol_solve_routed(ky, y)
-    mean = torch.einsum("bij,bj->bi", k, alpha)
-    v = torch.linalg.solve_triangular(l, k, upper=False)
-    return mean, k - torch.matmul(v.mT, v)
+    return _posterior_from_gram(apply_fn(params, precompute(x, x)), y, noise_var, jitter)
 
 
-def _one_model(params: BatchedGPParams) -> None:
-    if params.raw_lengthscale.shape[0] != 1:
+def _one_model(params) -> None:
+    if isinstance(params, BatchedGPParams) and params.raw_lengthscale.shape[0] != 1:
         raise ValueError(
-            "the single-model API takes a BatchedGPParams of one model, got "
-            f"{params.raw_lengthscale.shape[0]}; use the *_batch functions"
+            "the single-model API takes a GPParams (or a BatchedGPParams of one model), got "
+            f"{params.raw_lengthscale.shape[0]} models; use the *_batch functions"
         )
 
 
 def nlml(
-    params: BatchedGPParams,
+    params: GPParams,
     x: torch.Tensor,
     y: torch.Tensor,
     noise_var: torch.Tensor,
-    kernel_name: str = "matern32",
+    kernel=matern32,
     jitter: float = 1e-6,
+    *,
+    kernel_name: tp.Optional[str] = None,
 ) -> torch.Tensor:
     """Negative log marginal likelihood of one heteroskedastic-noise GP
     (a scalar, differentiable in ``params``)."""
     _one_model(params)
     t = x.shape[0]
-    k = get_kernel(kernel_name)(params, x[None], x[None])
-    ky = k + torch.diag_embed(noise_var[None]) + jitter * torch.eye(t, dtype=k.dtype,
-                                                                    device=k.device)
-    quad, logdet = linalg_cuda.nlml_terms(ky, y[None])
+    k = _single_kernel(kernel, kernel_name)(params, x, x)
+    ky = k + torch.diag(noise_var) + jitter * torch.eye(t, dtype=k.dtype, device=k.device)
+    quad, logdet = linalg_cuda.nlml_terms(ky[None], y[None])
     return 0.5 * (quad[0] + logdet[0] + t * _LOG_2PI)
 
 
-def posterior(params, x, y, noise_var, kernel_name: str = "matern32", jitter: float = 1e-6):
+@torch.no_grad()
+def posterior(params: GPParams, x, y, noise_var, kernel=matern32, jitter: float = 1e-6, *,
+              kernel_name: tp.Optional[str] = None):
     """Exact posterior (mean ``(T,)``, full covariance ``(T, T)``) of the
     latent f of one model at its training inputs."""
     _one_model(params)
-    mean, cov = posterior_batch(params, x[None], y[None], noise_var[None],
-                                kernel_name=kernel_name, jitter=jitter)
+    k = _single_kernel(kernel, kernel_name)(params, x, x)
+    mean, cov = _posterior_from_gram(k[None], y[None], noise_var[None], jitter)
     return mean[0], cov[0]
 
 
-def posterior_marginals(params, x, y, noise_var, kernel_name: str = "matern32",
-                        jitter: float = 1e-6):
+@torch.no_grad()
+def posterior_marginals(params: GPParams, x, y, noise_var, kernel=matern32, jitter: float = 1e-6,
+                        *, kernel_name: tp.Optional[str] = None):
     """Marginal posterior (mean, variance), each ``(T,)``, of one model
     without forming the full covariance."""
     _one_model(params)
-    mean, var = posterior_marginals_batch(params, x[None], y[None], noise_var[None],
-                                          kernel_name=kernel_name, jitter=jitter)
+    k = _single_kernel(kernel, kernel_name)(params, x, x)
+    mean, var = _marginals_from_gram(k[None], y[None], noise_var[None], jitter)
     return mean[0], var[0]
 
 
@@ -703,11 +774,18 @@ def fit_gp(
     n_optim_nits: int = 500,
     learning_rate: float = 0.01,
     jitter: float = 1e-6,
-) -> tp.Tuple[BatchedGPParams, torch.Tensor]:
+) -> tp.Tuple[GPParams, torch.Tensor]:
     """Optimise one model's kernel hyperparameters with Adam on the exact
-    NLML: :func:`fit_gp_batch` on a batch of one.  Returns the fitted
-    params (of one model) and the NLML trace ``(n_optim_nits,)``."""
+    NLML: :func:`fit_gp_batch` on a batch of one.  ``kernel_name`` also
+    takes the port's kernel callables (:func:`matern32`, :func:`rbf`).
+    Returns the fitted :class:`GPParams` and the NLML trace
+    ``(n_optim_nits,)``."""
+    if callable(kernel_name):
+        names = [n for n, f in _KERNELS.items() if f is kernel_name]
+        if not names:
+            raise ValueError("fit_gp fits the named kernels only: matern32 or rbf")
+        kernel_name = names[0]
     params, losses = fit_gp_batch(x[None], y[None], noise_var[None], kernel_name=kernel_name,
                                   n_optim_nits=n_optim_nits, learning_rate=learning_rate,
                                   jitter=jitter)
-    return params, losses[0]
+    return GPParams(params.raw_lengthscale.detach()[0], params.raw_variance.detach()[0]), losses[0]

@@ -9,7 +9,9 @@ distinct SSP fits.  :func:`pack_dedup_campaign` finds them (numpy only), and
 :func:`run_dedup_campaign` emulates each once (the historical fits at
 T = 1980 in host-level chunks, to bound device memory), gathers the
 marginals back into the ``(S, M)`` layout and runs the weighting and
-barycentre tail.  The multi-GPU form waits for ROADMAP.md item A10.
+barycentre tail.  :func:`make_sharded_dedup_campaign` is its form on a
+device mesh: the unique fits sharded over a mesh axis with no collective,
+their marginals gathered back, and the tail run on every rank.
 """
 
 from __future__ import annotations
@@ -21,7 +23,13 @@ import typing as tp
 import numpy as np
 import torch
 
-from bayesian_ensembling_tpu_torch._errors import not_ported, resolve_device
+from bayesian_ensembling_tpu_torch._errors import resolve_device
+from bayesian_ensembling_tpu_torch.parallel.mesh import (
+    _tensor_on,
+    all_gather,
+    mesh_device,
+    shard_map,
+)
 from bayesian_ensembling_tpu_torch.parallel.step import (
     _check_step_options,
     chunked_marginals,
@@ -187,6 +195,54 @@ def run_dedup_campaign(
     )
 
 
-def make_sharded_dedup_campaign(*args, **kwargs):
-    """The multi-device campaign of the JAX package; not ported yet."""
-    raise not_ported("make_sharded_dedup_campaign", "A10")
+def make_sharded_dedup_campaign(
+    mesh,
+    model_axis: str = "model",
+    *,
+    weight_kind: str = "crps",
+    sigma_mode: str = "w2",
+    hist_chunk: tp.Optional[int] = None,
+    **fit_kw,
+):
+    """The campaign on a device mesh: the unique-fit axes sharded over the
+    ``model_axis`` of ``mesh``.
+
+    Returns ``campaign(uh, um, usb, usm, uidx, sidx, obs, hb, hm, mmask) ->
+    (bary_mean (S, T_ssp), bary_std, weights (S, M))`` of the global
+    arrays of a :class:`DedupCampaign` (every rank passes the same; the
+    unique-fit axes ``uh`` / ``usb`` multiples of the axis size, see
+    :func:`pad_unique_axis`).  Fits never couple, so each rank emulates its
+    ``U/n`` historical and ``B_ssp/n`` SSP rows with no collective; the
+    ``(U, T)`` marginals (mean and variance together) are gathered back,
+    one ``all_gather`` per collection, and the weighting and barycentre tail
+    runs as it does unsharded, on every rank.  The outputs are plain
+    tensors, equal on every rank.
+
+    ``hist_chunk`` runs a rank's historical fits in chunks of that many
+    models, as :func:`run_dedup_campaign` does, to bound the device memory
+    at T = 1980; ``**fit_kw`` are ``parallel.step.emulate_marginals``'s.
+    """
+    _check_step_options(weight_kind, sigma_mode, None)
+    em = functools.partial(emulate_marginals, **fit_kw)
+
+    def emulate(block, mask, chunk):
+        mu, var = em(block, mask) if chunk is None else chunked_marginals(em, block, mask, chunk)
+        both = all_gather(torch.stack([mu, var]), model_axis, dim=1)
+        return both[0], both[1]
+
+    p = (model_axis,)
+    pad = {model_axis: "pad_unique_axis"}
+    hist = shard_map(functools.partial(emulate, chunk=hist_chunk), mesh, (p, p), ((), ()), pad=pad)
+    ssp = shard_map(functools.partial(emulate, chunk=None), mesh, (p, p), ((), ()), pad=pad)
+
+    def campaign(uh, um, usb, usm, uidx, sidx, obs, hb, hm, mmask):
+        h_mu_u, h_var_u = hist(uh, um)
+        s_mu_f, s_var_f = ssp(usb, usm)
+        tensor = functools.partial(_tensor_on, device=mesh_device(mesh))
+        uidx, sidx = tensor(uidx), tensor(sidx)
+        return multi_scenario_tail(
+            h_mu_u[uidx], h_var_u[uidx], s_mu_f[sidx], s_var_f[sidx], tensor(obs), tensor(hb),
+            tensor(hm), tensor(mmask), weight_kind=weight_kind, sigma_mode=sigma_mode,
+        )
+
+    return campaign

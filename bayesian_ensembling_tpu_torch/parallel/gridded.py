@@ -15,9 +15,13 @@ hyperparameters as a warm start.
 
 Gridded hyperparameters are a
 :class:`~bayesian_ensembling_tpu_torch.ops.gp.BatchedGPParams` with
-``(M, C)`` leaves, as the JAX ``GPParams`` has there.  The cells-sharded
-surfaces (``sharded_gridded_marginals``, ``make_sharded_gridded_step``)
-raise ``NotImplementedError`` naming ROADMAP.md item A10.
+``(M, C)`` leaves, as the JAX ``GPParams`` has there.
+
+On a device mesh (``parallel/mesh.py``) the cells are collective-free data
+parallelism: :func:`sharded_gridded_marginals` emulates each rank's cells,
+:func:`make_sharded_gridded_step` shards the (model, cell) axes of the whole
+step, the model axis coupling only at the weight total and the barycentre
+sums, and ``coarse_warm_start(mesh=...)`` shards the coarse fit.
 """
 
 from __future__ import annotations
@@ -28,10 +32,23 @@ import typing as tp
 import numpy as np
 import torch
 
-from bayesian_ensembling_tpu_torch._errors import not_ported, resolve_device
+from bayesian_ensembling_tpu_torch._errors import resolve_device
 from bayesian_ensembling_tpu_torch.ops import gp as gp_ops
+from bayesian_ensembling_tpu_torch.parallel.mesh import (
+    _tensor_on,
+    all_gather,
+    axis_size,
+    mesh_device,
+    psum,
+    shard_map,
+)
 from bayesian_ensembling_tpu_torch.parallel.step import (
+    _PAIRWISE,
     _check_step_options,
+    _gather_models,
+    _loglik,
+    _shifted_exp,
+    _similarity,
     _to,
     emulate_marginals,
     fused_raw_weights,
@@ -69,12 +86,78 @@ def pad_cells(
     return block, mask, c
 
 
-def sharded_gridded_marginals(*args, **kwargs):
-    raise not_ported("sharded_gridded_marginals (cells sharded over devices)", "A10")
+def sharded_gridded_marginals(
+    mesh,
+    block,  # (C, R, T) per-cell realisation stacks
+    mask,  # (C, R)
+    axis: str = "cells",
+    gp_init: tp.Optional[gp_ops.BatchedGPParams] = None,  # (C,) warm start
+    **emulate_kwargs,
+):
+    """Emulate every cell, the cells sharded over the ``axis`` of ``mesh``;
+    returns ``(mean, var)`` ``(C, T)`` as ``DTensor``s sharded over ``axis``.
+
+    Every rank passes the same global arrays (``C`` a multiple of the axis
+    size, see :func:`pad_cells`) and runs the whole emulation, the kernels
+    included, on its block of cells, with no collective.  ``gp_init``
+    warm-starts each cell's fit; its leaves are sharded with the cells.
+    """
+
+    def fn(b, m, ls, var):
+        init = None if ls is None else gp_ops.BatchedGPParams(ls, var)
+        return emulate_marginals(b, m, gp_init=init, **emulate_kwargs)
+
+    p = (axis,)
+    leaves = (None, None) if gp_init is None else _leaves(gp_init)
+    return shard_map(fn, mesh, (p, p, p, p), (p, p), pad={axis: "pad_cells"})(block, mask, *leaves)
 
 
-def make_sharded_gridded_step(*args, **kwargs):
-    raise not_ported("make_sharded_gridded_step (the cells x models sharded step)", "A10")
+def make_sharded_gridded_step(
+    mesh,
+    model_axis: str = "model",
+    cells_axis: str = "cells",
+    *,
+    weight_kind: str = "crps",
+    with_gp_init: bool = False,
+    **emulate_kwargs,
+):
+    """The gridded step on a 2-D ``(model, cells)`` mesh: cells and models
+    sharded at once.
+
+    Returns ``step(block, obs, mask, model_mask)`` of the global arrays
+    (``M`` and ``C`` multiples of their axes' sizes, see :func:`pad_cells`
+    and ``parallel.step.pad_models``); with ``with_gp_init=True`` it takes a
+    fifth argument, the ``(M, C)`` warm start, sharded like the data.  The
+    cells are collective-free; the model axis couples only at the weight
+    total and the barycentre sums, ``psum``s over ``model_axis``.  Returns
+    ``(bary_mean (C, T), bary_std (C, T))`` as ``DTensor``s sharded over
+    ``cells_axis`` (replicated over the models) and ``weights (M, C)``
+    sharded over both.  ``**emulate_kwargs`` are
+    :func:`gridded_ensemble_step`'s (``sigma_mode`` included).
+    """
+    _check_step_options(weight_kind, emulate_kwargs.get("sigma_mode", "w2"), None)
+
+    def fn(block, obs, mask, model_mask, ls=None, var=None):
+        init = None if ls is None else gp_ops.BatchedGPParams(ls, var)
+        return gridded_ensemble_step(block, obs, mask, model_mask, weight_kind=weight_kind,
+                                     model_axis=model_axis, gp_init=init, **emulate_kwargs)
+
+    p_mc, p_c = (model_axis, cells_axis), (cells_axis,)
+    in_specs = (p_mc, p_c, p_mc, (model_axis,)) + ((p_mc, p_mc) if with_gp_init else ())
+    smapped = shard_map(fn, mesh, in_specs, (p_c, p_c, p_mc),
+                        pad={model_axis: "pad_models", cells_axis: "pad_cells"})
+    if not with_gp_init:
+        return smapped
+
+    def step(block, obs, mask, model_mask, gp_init: gp_ops.BatchedGPParams):
+        return smapped(block, obs, mask, model_mask, *_leaves(gp_init))
+
+    return step
+
+
+def _leaves(params: gp_ops.BatchedGPParams):
+    """The detached leaves ``(raw_lengthscale, raw_variance)``."""
+    return params.raw_lengthscale.detach(), params.raw_variance.detach()
 
 
 def _reshape_params(params: gp_ops.BatchedGPParams, *shape: int) -> gp_ops.BatchedGPParams:
@@ -106,24 +189,36 @@ def gridded_tail(
     mixture's).  The dtype follows the inputs, so the float64 refinement
     runs this same tail.  Returns ``(bary_mean (C, T), bary_std (C, T),
     weights (M, C))``.
+
+    With ``model_axis`` (the models sharded over that mesh axis) the weight
+    total and the barycentre sums are ``psum``s over it; the ``loglik`` max
+    (a ``pmax``) and the similarity kinds' gathers are issued once for all
+    cells, as ``jax.vmap`` batches them.
     """
     _check_step_options(weight_kind, sigma_mode, model_axis)
-
-    def one_cell(mu, v, o, b, mk):
-        return fused_raw_weights(weight_kind, mu, v, o, b, mk, model_mask)
-
-    raw = torch.func.vmap(one_cell, in_dims=(1, 1, 0, 1, 1), out_dims=1)(
-        mean, var, obs, block, mask
-    )  # (M, C, T)
+    cells = functools.partial(torch.func.vmap, out_dims=1)
+    if weight_kind == "loglik":
+        ll = cells(lambda mu, v, o: _loglik(mu, v, o, model_mask), in_dims=(1, 1, 0))(mean, var, obs)
+        raw = _shifted_exp(ll, 0, model_axis)  # (M, C, T)
+    elif weight_kind in _PAIRWISE:
+        std = torch.sqrt(var)
+        mean_all, std_all, mask_all = _gather_models(mean, std, model_mask, model_axis, 0)
+        raw = cells(lambda mu, sd, mu_all, sd_all: _similarity(weight_kind, mu, sd, mu_all, sd_all,
+                                                               mask_all),
+                    in_dims=(1, 1, 1, 1))(mean, std, mean_all, std_all)
+    else:
+        raw = cells(lambda mu, v, o, b, mk: fused_raw_weights(weight_kind, mu, v, o, b, mk,
+                                                              model_mask),
+                    in_dims=(1, 1, 0, 1, 1))(mean, var, obs, block, mask)
     if model_mask is not None:
         raw = raw * model_mask[:, None, None]
-    w = torch.mean(raw / torch.sum(raw, dim=0), dim=2)  # (M, C)
-    bary_mean = torch.sum(w[:, :, None] * mean, dim=0)
+    w = torch.mean(raw / psum(torch.sum(raw, dim=0), model_axis), dim=2)  # (M, C)
+    bary_mean = psum(torch.sum(w[:, :, None] * mean, dim=0), model_axis)
     if sigma_mode == "mixture":
-        bary_std = torch.sqrt(torch.sum(
-            w[:, :, None] * (var + torch.square(mean - bary_mean[None])), dim=0))
+        bary_std = torch.sqrt(psum(torch.sum(
+            w[:, :, None] * (var + torch.square(mean - bary_mean[None])), dim=0), model_axis))
     else:
-        bary_std = torch.sum(w[:, :, None] * torch.sqrt(var), dim=0)
+        bary_std = psum(torch.sum(w[:, :, None] * torch.sqrt(var), dim=0), model_axis)
     return bary_mean, bary_std, w
 
 
@@ -151,7 +246,8 @@ def gridded_ensemble_step(
     Returns ``(bary_mean (C, T), bary_std (C, T), weights (M, C))``; with
     ``return_fit=True`` also the fitted ``(M, C)`` hyperparameters and the
     DBA targets ``y_mean, y_var`` ``(M, C, T)``: what
-    :func:`refined_gridded_f64` takes.
+    :func:`refined_gridded_f64` takes.  ``model_axis``: as
+    :func:`gridded_tail`'s (:func:`make_sharded_gridded_step`).
     """
     _check_step_options(weight_kind, sigma_mode, model_axis)
     m, c, r, t = block.shape
@@ -163,7 +259,7 @@ def gridded_ensemble_step(
                            **emulate_kwargs)
     mean, var = em[0].reshape(m, c, t), em[1].reshape(m, c, t)
     out = gridded_tail(mean, var, obs, block, mask, model_mask, weight_kind=weight_kind,
-                       sigma_mode=sigma_mode)
+                       sigma_mode=sigma_mode, model_axis=model_axis)
     if return_fit:
         params, y_mean, y_var = em[2:]
         return out + (_reshape_params(params, m, c), y_mean.reshape(m, c, t),
@@ -349,11 +445,10 @@ def coarse_warm_start(
     neighbouring cells have near-identical optima, so the fine pass
     (``gridded_ensemble_step(..., gp_init=...)``) needs a fraction of the
     scratch steps.  Returns ``(M, C)`` hyperparameters aligned with
-    ``block``'s cell axis, on its device.  ``mesh`` (a sharded coarse fit)
-    raises naming ROADMAP.md item A10.
+    ``block``'s cell axis, on its device (with ``mesh``: on this rank's).
+    With ``mesh`` the coarse fit shards its (model x coarse-cell) axis over
+    ``cells_axis`` (:func:`coarse_fit_params`).
     """
-    if mesh is not None:
-        raise not_ported("coarse_warm_start(mesh=...) (a cells-sharded coarse fit)", "A10")
     m, c, r, t = block.shape
     if c != lat * lon:
         raise ValueError(f"cells {c} != lat*lon {lat * lon}")
@@ -361,8 +456,9 @@ def coarse_warm_start(
     sel = torch.as_tensor(coarse, device=block.device)
     cb = block[:, sel].reshape(m * coarse.size, r, t)
     cm = mask[:, sel].reshape(m * coarse.size, r)
-    params = coarse_fit_params(cb, cm, n_optim_nits=n_optim_nits, **emulate_kwargs)
-    near = torch.as_tensor(nearest, device=block.device)
+    params = coarse_fit_params(cb, cm, n_optim_nits=n_optim_nits, mesh=mesh, cells_axis=cells_axis,
+                               **emulate_kwargs)
+    near = torch.as_tensor(nearest, device=params.raw_lengthscale.device)
     return gp_ops.BatchedGPParams(
         params.raw_lengthscale.detach().reshape(m, coarse.size)[:, near],
         params.raw_variance.detach().reshape(m, coarse.size)[:, near],
@@ -380,9 +476,32 @@ def coarse_fit_params(
 ) -> gp_ops.BatchedGPParams:
     """Scratch-fitted hyperparameters ``(N,)`` of a stack of coarse cells:
     the lower half of :func:`coarse_warm_start`, for callers that build
-    their own coarse subsets.  ``mesh`` raises naming ROADMAP.md item A10."""
-    if mesh is not None:
-        raise not_ported("coarse_fit_params(mesh=...) (a cells-sharded coarse fit)", "A10")
-    _, _, params = emulate_marginals(cb, cm, n_optim_nits=n_optim_nits, return_params=True,
-                                     **emulate_kwargs)
-    return _reshape_params(params, cb.shape[0])
+    their own coarse subsets.
+
+    With ``mesh`` the ``N`` fits are sharded over its ``cells_axis`` (padded
+    with copies of the first to a multiple of the axis size, the padding
+    dropped) with no collective but one: the fitted hyperparameters are
+    gathered, so every rank returns all ``N`` (on its device), as the fine
+    pass indexes them by nearest coarse cell.
+    """
+    if mesh is None:
+        _, _, params = emulate_marginals(cb, cm, n_optim_nits=n_optim_nits, return_params=True,
+                                         **emulate_kwargs)
+        return _reshape_params(params, cb.shape[0])
+    device = mesh_device(mesh)
+    cb, cm = _tensor_on(cb, device), _tensor_on(cm, device)
+    n, n_dev = cb.shape[0], axis_size(mesh, cells_axis)
+    reps = -(-n // n_dev) * n_dev - n
+    if reps:
+        cb = torch.cat([cb, cb[:1].expand(reps, *cb.shape[1:])])
+        cm = torch.cat([cm, cm[:1].expand(reps, *cm.shape[1:])])
+
+    def fit(b, m):
+        _, _, params = emulate_marginals(b, m, n_optim_nits=n_optim_nits, return_params=True,
+                                         **emulate_kwargs)
+        both = all_gather(torch.stack(_leaves(params)), cells_axis, dim=1)
+        return both[0], both[1]
+
+    p = (cells_axis,)
+    ls, var = shard_map(fit, mesh, (p, p), ((), ()))(cb, cm)
+    return gp_ops.BatchedGPParams(ls[:n], var[:n])

@@ -6,8 +6,15 @@ unsharded.  :func:`ensemble_multi_scenario_step` merges the (scenario,
 model) axes so that each collection (historical, SSP) is emulated in one
 batch of ``S*M`` models; the per-scenario weighting and barycentre tail is
 elementwise work.  :func:`refined_multi_scenario_f64` re-runs the posterior
-and the tail in float64 at given hyperparameters.  The model-sharded step
-(``model_axis``) raises ``NotImplementedError`` naming ROADMAP.md item A10.
+and the tail in float64 at given hyperparameters.
+
+The model-sharded forms, :func:`make_sharded_step` and
+:func:`make_sharded_multi_scenario_step`, run the same functions on each
+rank's block of models with ``model_axis`` naming the mesh axis
+(``parallel/mesh.py``): the cross-model couplings become collectives where the
+JAX package has them, the weight total, the barycentre sums and, for
+``loglik``, the per-point maximum over models, and for the similarity kinds
+the gather of the models' moments.
 """
 
 from __future__ import annotations
@@ -18,10 +25,10 @@ import typing as tp
 import numpy as np
 import torch
 
-from bayesian_ensembling_tpu_torch._errors import not_ported, resolve_device
+from bayesian_ensembling_tpu_torch._errors import resolve_device
 from bayesian_ensembling_tpu_torch.ops import gp as gp_ops
 from bayesian_ensembling_tpu_torch.ops import scoring
-from bayesian_ensembling_tpu_torch.ops.wasserstein import batched_gaussian_barycentre
+from bayesian_ensembling_tpu_torch.parallel.mesh import all_gather, axis_group, pmax, psum, shard_map
 
 __all__ = [
     "WEIGHT_KINDS",
@@ -30,6 +37,8 @@ __all__ = [
     "fused_raw_weights",
     "ensemble_scenario_step",
     "ensemble_multi_scenario_step",
+    "make_sharded_multi_scenario_step",
+    "make_sharded_step",
     "multi_scenario_tail",
     "pad_models",
     "refined_multi_scenario_f64",
@@ -51,12 +60,60 @@ WEIGHT_KINDS = (
 )
 
 
+# The kinds that couple models pairwise: under model sharding they gather
+# the models' moments and masks over the model axis.
+_PAIRWISE = ("similarity", "similarity_single")
+
+
 def _recip(score: torch.Tensor) -> torch.Tensor:
     """1 / score, the score floored at sqrt(tiny): an exact zero would give
     inf and inf/inf = NaN in the sum-to-one normalisation, while 1/tiny
     would overflow the sum over a few floored models."""
     floor = float(np.sqrt(torch.finfo(score.dtype).tiny))
     return 1.0 / torch.clamp(score, min=floor)
+
+
+def _loglik(hist_mean, hist_var, obs, model_mask):
+    """Mean observation log-likelihood ``(M, T)``, -inf on padded models."""
+    ll = scoring.diag_log_likelihood(hist_mean[:, None, :], hist_var[:, None, :], obs)
+    ll = torch.mean(ll, dim=1)
+    if model_mask is not None:
+        ll = torch.where(model_mask[:, None] > 0, ll, -float("inf"))
+    return ll
+
+
+def _shifted_exp(ll: torch.Tensor, model_dim: int, model_axis) -> torch.Tensor:
+    """``exp(ll - max over models)``, the max a ``pmax`` under sharding."""
+    return torch.exp(ll - pmax(torch.amax(ll, dim=model_dim, keepdim=True), model_axis))
+
+
+def _similarity(weight_kind, mean, std, mean_all, std_all, mask_all):
+    """Mean W2 dissimilarity ``(M_local, T)`` of each local model to every
+    real model of ``mean_all`` / ``std_all`` ``(M, T)`` (``mask_all``)."""
+    d_mu = mean[:, None, :] - mean_all[None, :, :]  # (M_local, M, T)
+    d_sd = std[:, None, :] - std_all[None, :, :]
+    if weight_kind == "similarity_single":
+        pair = torch.sqrt(torch.sum(torch.square(d_mu), dim=-1)) + torch.sum(
+            torch.square(d_sd), dim=-1
+        )  # (M_local, M)
+        if mask_all is not None:
+            valid = mask_all.to(pair.dtype)
+            vec = pair @ valid / torch.clamp(torch.sum(valid), min=1.0)
+        else:
+            vec = torch.mean(pair, dim=1)
+        return vec[:, None].expand_as(mean)
+    pair = torch.abs(d_mu) + torch.square(d_sd)
+    if mask_all is not None:
+        valid = mask_all.to(pair.dtype)
+        return torch.einsum("ijt,j->it", pair, valid) / torch.clamp(torch.sum(valid), min=1.0)
+    return torch.mean(pair, dim=1)
+
+
+def _gather_models(mean, std, model_mask, model_axis, dim):
+    """Every rank's models' means, stds and mask (three tiled gathers over
+    ``model_axis``; the inputs themselves when unsharded)."""
+    mask_all = None if model_mask is None else all_gather(model_mask, model_axis, dim)
+    return all_gather(mean, model_axis, dim), all_gather(std, model_axis, dim), mask_all
 
 
 def fused_raw_weights(
@@ -83,17 +140,17 @@ def fused_raw_weights(
         dissimilarity |dmu| + dsigma^2;
       * ``similarity_single``: the same with one whole-series W2 per pair,
         ||dmu||_2 + sum_t dsigma^2, broadcast over time.
+
+    ``model_axis`` names the mesh axis the models are sharded over (a
+    ``make_sharded_*`` step's mesh): the ``loglik`` max becomes a ``pmax``
+    and the similarity kinds gather every rank's means, stds and mask.
     """
     if model_axis is not None:
-        raise not_ported("model_axis (model-sharded step)", "A10")
+        axis_group(model_axis)
     if weight_kind == "crps":
         return _recip(scoring.mean_gaussian_crps(hist_mean, torch.sqrt(hist_var), obs))
     if weight_kind == "loglik":
-        ll = scoring.diag_log_likelihood(hist_mean[:, None, :], hist_var[:, None, :], obs)
-        ll = torch.mean(ll, dim=1)
-        if model_mask is not None:
-            ll = torch.where(model_mask[:, None] > 0, ll, -float("inf"))
-        return torch.exp(ll - torch.amax(ll, dim=0, keepdim=True))
+        return _shifted_exp(_loglik(hist_mean, hist_var, obs, model_mask), 0, model_axis)
     if weight_kind == "ksd":
         return _recip(scoring.batched_imq_ksd(hist_mean, torch.sqrt(hist_var), obs))
     if weight_kind == "inverse_square":
@@ -105,25 +162,10 @@ def fused_raw_weights(
         return _recip(torch.square(mu - torch.mean(obs, dim=0)[None, :]))
     if weight_kind == "uniform":
         return torch.ones_like(hist_mean)
-    if weight_kind in ("similarity", "similarity_single"):
+    if weight_kind in _PAIRWISE:
         std = torch.sqrt(hist_var)
-        d_mu = hist_mean[:, None, :] - hist_mean[None, :, :]  # (M, M, T)
-        d_sd = std[:, None, :] - std[None, :, :]
-        if weight_kind == "similarity_single":
-            pair = torch.sqrt(torch.sum(torch.square(d_mu), dim=-1)) + torch.sum(
-                torch.square(d_sd), dim=-1
-            )  # (M, M)
-            if model_mask is not None:
-                valid = model_mask.to(pair.dtype)
-                vec = pair @ valid / torch.clamp(torch.sum(valid), min=1.0)
-            else:
-                vec = torch.mean(pair, dim=1)
-            return vec[:, None].expand_as(hist_mean)
-        pair = torch.abs(d_mu) + torch.square(d_sd)
-        if model_mask is not None:
-            valid = model_mask.to(pair.dtype)
-            return torch.einsum("ijt,j->it", pair, valid) / torch.clamp(torch.sum(valid), min=1.0)
-        return torch.mean(pair, dim=1)
+        return _similarity(weight_kind, hist_mean, std,
+                           *_gather_models(hist_mean, std, model_mask, model_axis, 0))
     raise ValueError(f"unknown weight_kind {weight_kind!r}; one of {WEIGHT_KINDS}")
 
 
@@ -209,22 +251,51 @@ def chunked_marginals(em, block: torch.Tensor, mask: torch.Tensor, chunk: int):
     return torch.cat(means)[:b], torch.cat(varis)[:b]
 
 
-def _barycentre(weights, ssp_mean, ssp_var, sigma_mode):
+def _barycentre(weights, ssp_mean, ssp_var, sigma_mode, model_axis=None):
     """W2 (or moment-matched mixture) barycentre over the model axis (-2),
-    one weight per model."""
-    return batched_gaussian_barycentre(
-        ssp_mean, torch.sqrt(ssp_var), weights[..., None], sigma_mode=sigma_mode
-    )
+    one weight per model; its sums are ``psum``s over ``model_axis``."""
+    w = weights[..., None]
+    std = torch.sqrt(ssp_var)
+    mu = psum(torch.sum(w * ssp_mean, dim=-2), model_axis)
+    if sigma_mode == "mixture":
+        dev = ssp_mean - mu[..., None, :]
+        return mu, torch.sqrt(psum(torch.sum(w * (torch.square(std) + dev * dev), dim=-2),
+                                   model_axis))
+    return mu, psum(torch.sum(w * std, dim=-2), model_axis)
 
 
 def _check_step_options(weight_kind, sigma_mode, model_axis):
-    """Refuse what the tail cannot do before the emulation runs."""
+    """Refuse what the tail cannot do before the emulation runs; an axis name
+    must resolve against the current mesh."""
     if weight_kind not in WEIGHT_KINDS:
         raise ValueError(f"unknown weight_kind {weight_kind!r}; one of {WEIGHT_KINDS}")
     if sigma_mode not in _SIGMA_MODES:
         raise ValueError(f"fused step supports sigma_mode 'w2' | 'mixture', got {sigma_mode!r}")
     if model_axis is not None:
-        raise not_ported("model_axis (model-sharded step)", "A10")
+        axis_group(model_axis)
+
+
+def _stacked_raw_weights(weight_kind, hist_mean, hist_var, obs, hist_blocks, hist_masks,
+                         model_masks, model_axis):
+    """``fused_raw_weights`` of every scenario, ``(S, M, T)``, one scenario at
+    a time (which bounds the ``ksd`` weights' ``(M, T, R_obs, R_obs)``
+    temporaries at one scenario's); the collectives of ``loglik`` and the
+    similarity kinds are issued once for all scenarios."""
+    s = hist_mean.shape[0]
+    if weight_kind == "loglik":
+        ll = torch.stack([_loglik(hist_mean[i], hist_var[i], obs, model_masks[i])
+                          for i in range(s)])
+        return _shifted_exp(ll, 1, model_axis)
+    if weight_kind in _PAIRWISE:
+        std = torch.sqrt(hist_var)
+        peers = _gather_models(hist_mean, std, model_masks, model_axis, 1)
+        return torch.stack([_similarity(weight_kind, hist_mean[i], std[i], *(p[i] for p in peers))
+                            for i in range(s)])
+    return torch.stack([
+        fused_raw_weights(weight_kind, hist_mean[i], hist_var[i], obs, hist_blocks[i],
+                          hist_masks[i], model_masks[i])
+        for i in range(s)
+    ])
 
 
 def multi_scenario_tail(
@@ -246,18 +317,18 @@ def multi_scenario_tail(
     timestep, time-mean, then the barycentre.  Returns
     ``(bary_mean (S, T_ssp), bary_std (S, T_ssp), weights (S, M))``.
 
-    The raw weights are computed one scenario at a time, which bounds the
-    ``ksd`` weights' ``(M, T, R_obs, R_obs)`` temporaries at one scenario's.
+    With ``model_axis`` (the models sharded over a mesh axis) the weight
+    total and the barycentre sums are ``psum``s over it: three all-reduces,
+    plus a ``pmax`` for ``loglik`` and three gathers for the similarity
+    kinds, whatever the number of scenarios.
     """
     _check_step_options(weight_kind, sigma_mode, model_axis)
-    raw = torch.stack([
-        fused_raw_weights(weight_kind, hist_mean[i], hist_var[i], obs, hist_blocks[i],
-                          hist_masks[i], model_masks[i])
-        for i in range(hist_mean.shape[0])
-    ])
+    raw = _stacked_raw_weights(weight_kind, hist_mean, hist_var, obs, hist_blocks, hist_masks,
+                               model_masks, model_axis)
     raw = raw * model_masks[:, :, None]
-    weights = torch.mean(raw / torch.sum(raw, dim=1, keepdim=True), dim=2)
-    bary_mean, bary_std = _barycentre(weights, ssp_mean, ssp_var, sigma_mode)
+    total = psum(torch.sum(raw, dim=1, keepdim=True), model_axis)
+    weights = torch.mean(raw / total, dim=2)
+    bary_mean, bary_std = _barycentre(weights, ssp_mean, ssp_var, sigma_mode, model_axis)
     return bary_mean, bary_std, weights
 
 
@@ -284,7 +355,9 @@ def ensemble_scenario_step(
 ) -> tp.Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One full scenario: emulate hist + ssp, weight against obs, W2
     barycentre.  Returns ``(bary_mean (T_ssp,), bary_std (T_ssp,),
-    weights (M,))``."""
+    weights (M,))``.  With ``model_axis`` (the models sharded over that mesh
+    axis, :func:`make_sharded_step`) the weight total and the barycentre
+    sums are ``psum``s over it."""
     _check_step_options(weight_kind, sigma_mode, model_axis)
     em = dict(
         kernel_name=kernel_name, n_optim_nits=n_optim_nits, learning_rate=learning_rate,
@@ -294,11 +367,12 @@ def ensemble_scenario_step(
     hist_mean, hist_var = emulate_marginals(hist_block, hist_mask, **em)
     ssp_mean, ssp_var = emulate_marginals(ssp_block, ssp_mask, **em)
     raw = fused_raw_weights(weight_kind, hist_mean, hist_var, obs, hist_block, hist_mask,
-                            model_mask)
+                            model_mask, model_axis=model_axis)
     if model_mask is not None:
         raw = raw * model_mask[:, None]
-    weights = torch.mean(raw / torch.sum(raw, dim=0, keepdim=True), dim=1)
-    bary_mean, bary_std = _barycentre(weights, ssp_mean, ssp_var, sigma_mode)
+    total = psum(torch.sum(raw, dim=0, keepdim=True), model_axis)
+    weights = torch.mean(raw / total, dim=1)
+    bary_mean, bary_std = _barycentre(weights, ssp_mean, ssp_var, sigma_mode, model_axis)
     return bary_mean, bary_std, weights
 
 
@@ -325,7 +399,9 @@ def ensemble_multi_scenario_step(
 ):
     """All scenarios at once: each collection is emulated as one batch of
     ``S*M`` models, then the per-scenario tail.  Returns
-    ``(bary_mean (S, T_ssp), bary_std (S, T_ssp), weights (S, M))``."""
+    ``(bary_mean (S, T_ssp), bary_std (S, T_ssp), weights (S, M))``.
+    ``model_axis``: as :func:`multi_scenario_tail`'s
+    (:func:`make_sharded_multi_scenario_step`)."""
     _check_step_options(weight_kind, sigma_mode, model_axis)
     s, m, r, t_hist = hist_blocks.shape
     t_ssp = ssp_blocks.shape[-1]
@@ -350,8 +426,92 @@ def ensemble_multi_scenario_step(
         hist_masks,
         model_masks,
         weight_kind=weight_kind,
+        model_axis=model_axis,
         sigma_mode=sigma_mode,
     )
+
+
+def make_sharded_multi_scenario_step(
+    mesh,
+    model_axis: str = "model",
+    *,
+    scenario_axis: tp.Optional[str] = None,
+    kernel_name: str = "matern32",
+    n_optim_nits: int = 500,
+    learning_rate: float = 0.01,
+    dba_iterations: int = 10,
+    dba_method: str = "classic",
+    dba_tol: tp.Optional[float] = None,
+    weight_kind: str = "crps",
+    optimizer: str = "adam",
+    sigma_mode: str = "w2",
+    time_stride: int = 1,
+    fine_steps: tp.Optional[int] = None,
+):
+    """:func:`ensemble_multi_scenario_step` with the model axis sharded over
+    the ``model_axis`` of ``mesh`` (a ``DeviceMesh`` whose
+    ``mesh_dim_names`` name its axes).
+
+    Returns ``step(hist_blocks, hist_masks, ssp_blocks, ssp_masks, obs,
+    model_masks)`` of the global arrays (every rank passes the same; ``M``
+    a multiple of the axis size, see :func:`pad_models`): each rank emulates
+    its ``S x M/n`` block and the only collectives are the per-scenario
+    weight total and barycentre sums, ``psum``s over ``model_axis``.  With
+    ``scenario_axis`` naming a second mesh axis the scenarios are sharded
+    too, with no collective (scenarios never couple).  Returns
+    ``(bary_mean, bary_std, weights)``: the moments replicated over the
+    model axis (plain tensors; ``DTensor``s sharded over ``scenario_axis``
+    when it is given), the weights a ``DTensor`` sharded over both.
+    """
+    _check_step_options(weight_kind, sigma_mode, None)
+    fn = functools.partial(
+        ensemble_multi_scenario_step, kernel_name=kernel_name, n_optim_nits=n_optim_nits,
+        learning_rate=learning_rate, dba_iterations=dba_iterations, dba_method=dba_method,
+        dba_tol=dba_tol, weight_kind=weight_kind, optimizer=optimizer, model_axis=model_axis,
+        sigma_mode=sigma_mode, time_stride=time_stride, fine_steps=fine_steps,
+    )
+    p_sm, p_s = (scenario_axis, model_axis), (scenario_axis,)
+    return shard_map(fn, mesh, (p_sm, p_sm, p_sm, p_sm, (), p_sm), (p_s, p_s, p_sm),
+                     pad={model_axis: "pad_models"})
+
+
+def make_sharded_step(
+    mesh,
+    model_axis: str = "model",
+    *,
+    kernel_name: str = "matern32",
+    n_optim_nits: int = 500,
+    learning_rate: float = 0.01,
+    dba_iterations: int = 10,
+    dba_method: str = "classic",
+    dba_tol: tp.Optional[float] = None,
+    weight_kind: str = "crps",
+    optimizer: str = "adam",
+    sigma_mode: str = "w2",
+    time_stride: int = 1,
+    fine_steps: tp.Optional[int] = None,
+):
+    """One scenario (:func:`ensemble_scenario_step`) with the model axis
+    sharded over the ``model_axis`` of ``mesh``.
+
+    Returns ``step(hist_block, hist_mask, ssp_block, ssp_mask, obs,
+    model_mask)`` of the global arrays (``M`` a multiple of the axis size,
+    see :func:`pad_models`).  Each rank runs the whole emulation, the
+    kernels included, on its models; the collectives are the weight total
+    and the barycentre sums (a ``pmax`` more for ``loglik``, three gathers
+    more for the similarity kinds).  Returns ``(bary_mean, bary_std)``
+    replicated as plain tensors and the weights as a ``DTensor`` sharded
+    over ``model_axis``.
+    """
+    _check_step_options(weight_kind, sigma_mode, None)
+    fn = functools.partial(
+        ensemble_scenario_step, kernel_name=kernel_name, n_optim_nits=n_optim_nits,
+        learning_rate=learning_rate, dba_iterations=dba_iterations, dba_method=dba_method,
+        dba_tol=dba_tol, weight_kind=weight_kind, optimizer=optimizer, model_axis=model_axis,
+        sigma_mode=sigma_mode, time_stride=time_stride, fine_steps=fine_steps,
+    )
+    p = (model_axis,)
+    return shard_map(fn, mesh, (p, p, p, p, (), p), ((), (), p), pad={model_axis: "pad_models"})
 
 
 def pad_models(

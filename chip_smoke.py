@@ -49,7 +49,7 @@ Phases, in order; any failure exits non-zero:
    within 0.01 degC), and ``refined_multi_scenario_f64`` on the card
    against the CPU at the fitted hyperparameters and targets (1e-5 degC).
 5. Timing of the faithful workload (2,000 Adam steps, 10 DBA iterations):
-   median wall time of the step, and a per-stage split.
+   the wall time of one run after a warm-up, and a per-stage split.
 6. The native-monthly dedup campaign, ``run_dedup_campaign``, on synthetic
    inputs of its full width (20 unique historical models at T = 1980, 7
    scenarios with 65 SSP fits at T = 1032 padded to M = 16, 3 to 29
@@ -57,15 +57,15 @@ Phases, in order; any failure exits non-zero:
    settings (500 Adam steps, 10 DBA iterations, historical chunks of 28):
    float32 on the card with every launch and route counter checked, then
    float64 on the card (the library route for every fit) as the reference,
-   within 0.01 degC; then the median wall time of 3 float32 runs and a
+   within 0.01 degC; then the wall time of one more float32 run and a
    per-stage split.
 7. The reference-faithful DBA: the step with the subgradient DBA (50
    epochs, tol 1e-3) at the flagship shape, float32 against float64 on the
    card (0.01 degC), with the DTW cost and DBA-update launches checked
    against the epochs ``dba_subgradient_batch`` reports; the medoid
    ``dba_batch`` float32 against float64 (one cost launch, 10 updates);
-   then the median wall time of the subgradient step at 2,000 Adam steps
-   and its DBA stage.
+   then the wall time of the subgradient step at 2,000 Adam steps (one run
+   after a warm-up) and its DBA stage.
 8. The bench's fast fit routes at the flagship shape: coarse-to-fine in
    time (stride 12, 1,000 coarse and 250 fine steps) against float64 on the
    card (0.01 degC); the per-model BFGS at 30 steps, whose distance to a
@@ -73,7 +73,7 @@ Phases, in order; any failure exits non-zero:
    run's (where it is not, the rule must hold once the models that the
    BFGS strands on the plateau of ROADMAP C7 take the truth's fits, and
    the script names them); the chunked fit (chunks of 250) against phase 4's merged fit, bit
-   for bit; median wall times of 3 runs.
+   for bit; the wall time of one run of each after a warm-up.
 
 9. The library API at full width: the flagship inputs as ``ProcessModel`` /
    ``ModelCollection`` objects (12 to 16 real models per scenario,
@@ -85,8 +85,9 @@ Phases, in order; any failure exits non-zero:
    the card (0.01 degC on the barycentre); every other weighter, option,
    scheme and sigma mode at one scenario's float32 posteriors, card
    float32 against CPU float64; ``CRPSWeight`` through ``run_scenario``
-   against phase 4's fused step for scenario 0 (0.01 degC); the median
-   wall time of 3 runs and the share of fit, weights and scheme.
+   against phase 4's fused step for scenario 0 (0.01 degC); the wall time
+   of one run after the checked one, and the share of fit, weights and
+   scheme.
 
 10. The gridded surface at the 5-degree north-star grid of
    ``benchmarks/gridded_bench.py`` (5 models x 36 x 72 cells x 10
@@ -134,6 +135,21 @@ Phases, in order; any failure exits non-zero:
    steps) with its launch counters, ``project_point`` at every cell and
    ``map_grid`` held against the posterior it served.
 
+12. The sharded surfaces (``parallel/mesh.py``) through a one-rank NCCL
+   process group and CUDA device meshes: ``make_sharded_multi_scenario_step``
+   on a (scenario 1, model 1) mesh at phase 4's width and depth,
+   ``make_sharded_dedup_campaign`` on a ("model",) mesh at phase 6's campaign
+   (historical chunks of 28), and ``make_sharded_gridded_step`` on a
+   (model 1, cells 1) mesh at phase 10's grid (bfgs-30); on one rank every
+   collective returns its input, so each must equal its earlier phase's
+   float32 output bit for bit (the largest difference is printed beside the
+   gate), with the collective counts of ``benchmarks/collective_audit.json``
+   (3 all-reduces a step; the campaign's 2 gathers) and the earlier phase's
+   launch and route counts.  Then whether gloo takes CUDA tensors for each
+   collective of these paths, and if it does, ``make_sharded_step`` on
+   scenario 0 (16 models, 500 Adam steps) as two gloo ranks sharing the
+   card, against one rank within 1e-5 degC.  Each surface is timed once.
+
 The last lines are a JSON summary of the kernels, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
 """
@@ -156,7 +172,11 @@ PARITY_DEGC = 0.01  # f32-vs-f64 gate on barycentre moments (bench.py's gate)
 # Adam steps of the f32-kernels vs f64-plain comparison: the f64 run of the
 # plain versions on the CPU takes about 2 minutes at 500 steps.
 PARITY_NITS = 500
-TIMING_NITS, TIMING_REPS = 2000, 3  # the faithful workload; median of 3 after a warm-up
+# The faithful workload; timed runs after a warm-up.  One run: the host
+# sets these host-bound times and drifts up to 2x between calls (ROADMAP
+# C9), so medians of 3 told no more, and the script must finish within its
+# 1,200 s on a slow host (PERF.md section 5).
+TIMING_NITS, TIMING_REPS = 2000, 1
 LINALG_TOL = 1e-3  # float32 kernel vs float32 plain version, relative to the largest entry
 LINALG_TOL_F64 = 1e-10  # float64 kernel vs float64 plain version: another summation order
 
@@ -164,7 +184,7 @@ LINALG_TOL_F64 = 1e-10  # float64 kernel vs float64 plain version: another summa
 # historical models, 7 scenarios with 65 real SSP fits padded to M = 16.
 N_HIST_MODELS, SSP_MODELS = 20, (16, 12, 9, 8, 7, 7, 6)
 T_HIST_M, T_SSP_M, HIST_CHUNK = 1980, 1032, 28
-MONTHLY_NITS, MONTHLY_REPS = 500, 3
+MONTHLY_NITS, MONTHLY_REPS = 500, 1  # timed runs after the checked one
 # float32 blocked NLML vs float64 torch.linalg at (65, 1032), relative to the
 # largest entry: float32 round-off of the Cholesky of a Gram whose condition
 # number is about 1e5 (T / noise).
@@ -180,7 +200,7 @@ BFGS_SLACK = 1.05
 CHUNK_STEPS = 250
 WEIGHT_TOL = 1e-4  # float32 tail vs float64 at the same marginals
 REFINED_DEGC = 1e-5  # refined moments, card vs CPU (bench.py:539)
-LIBRARY_NITS, LIBRARY_REPS = 500, 3  # phase 9: run_scenario's fit depth; timed runs
+LIBRARY_NITS, LIBRARY_REPS = 500, 1  # phase 9: run_scenario's fit depth; timed runs
 
 # Peak rates of one H100 SXM (NVIDIA's data sheet) for the kernels' bounds.
 HBM_BYTES_PER_S = 3.35e12
@@ -988,6 +1008,9 @@ def run_monthly(torch, bt, dev, seed, report):
               file=sys.stderr)
         return None
     report["monthly_launches"] = launches
+    # Phase 12 holds the sharded campaign to this run bit for bit.
+    report["monthly_f32"] = dict(pack=pack, obs=obs, out=(bm, bs, w), launches=launches,
+                                 routes=routes)
     warm = dt
 
     bt.reset_launch_counts()
@@ -1841,6 +1864,9 @@ def run_gridded(torch, bt, dev, report):
 
     # The float64 refinement of the whole grid at the step's fit, on the card;
     # the first cells again in float64 by the plain versions on the CPU.
+    # Phase 12 holds the sharded gridded step to this run bit for bit.
+    report["gridded_f32"] = dict(blk=blk, ob=ob, mk=mk, out=out[:3], launches=launches,
+                                 routes=routes)
     params, ym, yv = out[3:]
     torch.cuda.reset_peak_memory_stats()
     dt, refined = _wall(torch, lambda: bt.refined_gridded_f64(blk, ob, mk, params, (ym, yv),
@@ -2289,6 +2315,208 @@ def run_validation(torch, bt, dev, inputs, fitted, results, report):
     return ok
 
 
+# ------------------------------------------------------------- sharded surfaces
+# Phase 12: the sharded surfaces (bayesian_ensembling_tpu_torch/parallel/mesh.py)
+# through a one-rank NCCL process group, at the widths of phases 4, 6 and 10.
+# The annual step on two ranks against one rank: float64 to 1e-5 degC; float32
+# to the float32 gate, since at 8 models a batch PyTorch's batched products
+# round otherwise than at 16 and Adam carries that on (2.611e-5 degC at 500
+# steps on the H100, PERF.md section 6).
+SHARDED_TWO_RANK_DEGC = {"float64": 1e-5, "float32": PARITY_DEGC}
+SHARDED_TIMEOUT = 300  # seconds for the two-rank run, the processes' start included
+
+
+def _local(x):
+    """A sharded output's block on this rank (on one rank, the whole array)."""
+    return x.to_local() if hasattr(x, "to_local") else x
+
+
+def _bitwise(torch, got, want):
+    """(every output equal bit for bit, the largest |difference|)."""
+    got = [_local(g) for g in got]
+    same = all(g.shape == w.shape and g.dtype == w.dtype and bool(torch.equal(g, w))
+               for g, w in zip(got, want))
+    return same, max(_abs(g, w) for g, w in zip(got, want))
+
+
+def _f32(a):
+    return a.astype(np.float32) if a.dtype.kind == "f" else a
+
+
+def sharded_two_rank_worker(rank, world, runs, nits, device_type="cuda"):
+    """One rank of the annual sharded step on ``world`` gloo ranks that share
+    the card (NCCL refuses two ranks on one device).  First each collective
+    of the sharded paths on CUDA tensors; the step on each of ``runs``
+    (``{dtype name: the step's arrays}``) only if gloo takes them all.
+    Rank 0's return value reaches the parent.  (``device_type="cpu"``
+    rehearses it without a card.)"""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    import bayesian_ensembling_tpu_torch as bt
+    from bayesian_ensembling_tpu_torch.parallel import mesh as mesh_ops
+
+    def stage(msg):
+        log(f"[sharded]   rank {rank} of {world}: {msg}")
+
+    dev = torch.device(device_type, 0) if device_type == "cuda" else torch.device(device_type)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    probe = {}
+    for name, call in (
+        ("all_reduce", lambda: dist.all_reduce(torch.ones(4, device=dev))),
+        ("all_gather_into_tensor", lambda: dist.all_gather_into_tensor(
+            torch.empty(4 * world, device=dev), torch.ones(4, device=dev))),
+    ):
+        try:
+            call()
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            probe[name] = "ok"
+        except RuntimeError as e:
+            probe[name] = f"{type(e).__name__}: {e}".splitlines()[0]
+    stage(f"collectives on {dev.type} tensors: {probe}")
+    out = dict(probe=probe)
+    if any(v != "ok" for v in probe.values()):
+        return out
+    mesh = init_device_mesh(dev.type, (world,), mesh_dim_names=("model",))
+    step = bt.make_sharded_step(mesh, n_optim_nits=nits, dba_iterations=10)
+    for dtype, arrays in runs.items():
+        bt.reset_launch_counts()
+        got = step(*arrays)
+        out[dtype] = dict(collectives=bt.collective_counts(), launches=bt.launch_counts())
+        stage(f"{dtype} step done; collectives {out[dtype]['collectives']}")
+        with mesh_ops.use_mesh(mesh):  # every rank's weights, for the comparison
+            weights = mesh_ops.all_gather(got[2].to_local(), "model")
+        out[dtype]["values"] = [a.cpu().numpy() for a in (got[0], got[1], weights)]
+    return out
+
+
+def run_sharded(torch, bt, dev, inputs, annual, report, backend="nccl"):
+    """Phase 12: the sharded surfaces through a one-rank NCCL process group
+    and CUDA meshes, each held bit for bit to the unsharded run of an earlier
+    phase (``annual``: phase 4's output and counts; ``report``: phase 6's and
+    phase 10's), with its collective and launch counts; then the annual step
+    on two gloo ranks sharing the card, against one rank.  (A CPU ``dev``
+    with ``backend="gloo"`` rehearses it without a card.)"""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    t_phase = time.perf_counter()
+    ok = True
+    address = f"tcp://127.0.0.1:{bt.parallel.mesh.free_port()}"
+    dist.init_process_group(backend, init_method=address, world_size=1, rank=0)
+    try:
+        mesh_1d = init_device_mesh(dev.type, (1,), mesh_dim_names=("model",))
+        mesh_sm = init_device_mesh(dev.type, (1, 1), mesh_dim_names=("scenario", "model"))
+        mesh_mc = init_device_mesh(dev.type, (1, 1), mesh_dim_names=("model", "cells"))
+        log(f"[sharded] one-rank {backend} group; meshes {mesh_1d}, {mesh_sm}, {mesh_mc}")
+        # A group's communicator is made at its first collective: set them up
+        # here, so that the surfaces' times are steady ones.
+        t0 = time.perf_counter()
+        for mesh in (mesh_1d, mesh_sm, mesh_mc):
+            for name in mesh.mesh_dim_names:
+                dist.all_reduce(torch.zeros(1, device=dev), group=mesh.get_group(name))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        log(f"[sharded] first collective on each of the meshes' 5 groups: "
+            f"{time.perf_counter() - t0:.3f} s (communicator set-up)")
+        launches = {}
+
+        def surface(name, fn, want, want_collectives, want_launches, want_routes):
+            bt.reset_launch_counts()
+            dt, got = _wall(torch, fn)
+            counts = (bt.collective_counts(), bt.launch_counts(), bt.route_counts())
+            for k, v in counts[1].items():
+                launches[k] = launches.get(k, 0) + v
+            same, gap = _bitwise(torch, got, want)
+            good = same and counts == (want_collectives, want_launches, want_routes)
+            log(f"[sharded] {name}: {dt:.3f} s; bit for bit the unsharded run's: {same} (largest "
+                f"|difference| {gap:.3e}, gate 0); collectives {counts[0]} (expected "
+                f"{want_collectives}); launches and routes as the unsharded run's: "
+                f"{counts[1:] == (want_launches, want_routes)}")
+            if not good:
+                log(f"[sharded]   launches {counts[1]} (expected {want_launches}); routes "
+                    f"{counts[2]} (expected {want_routes})")
+            return good
+
+        # (a) The flagship's 7 SSPs x 16 models on a (scenario 1, model 1) mesh,
+        # phase 4's depth.
+        step = bt.make_sharded_multi_scenario_step(mesh_sm, scenario_axis="scenario",
+                                                   n_optim_nits=PARITY_NITS, dba_iterations=10)
+        s_, m_, _, t_h = inputs[0].shape
+        ok &= surface(f"make_sharded_multi_scenario_step, {s_} x {m_} models, "
+                      f"T={t_h}/{inputs[2].shape[-1]}, {PARITY_NITS} Adam steps", lambda: step(*_tensors(torch, inputs, dev,
+                                                                          torch.float32)),
+                      annual["out"], {"all_reduce": 3, "all_gather": 0}, annual["launches"],
+                      annual["routes"])
+
+        # (b) The native-monthly campaign of phase 6 on the ("model",) mesh.
+        m = report.pop("monthly_f32")
+        pack = m["pack"]
+        campaign = bt.make_sharded_dedup_campaign(mesh_1d, hist_chunk=HIST_CHUNK,
+                                                  n_optim_nits=MONTHLY_NITS, dba_iterations=10)
+        args = [_f32(np.asarray(a)) for a in (pack.uh, pack.um, pack.usb, pack.usm, pack.uidx,
+                                              pack.sidx, m["obs"], pack.hb, pack.hm, pack.mmask)]
+        ok &= surface(f"make_sharded_dedup_campaign, {pack.uh.shape[0]} + {pack.usb.shape[0]} fits, "
+                      f"T={T_HIST_M}/{T_SSP_M}, {MONTHLY_NITS} Adam steps",
+                      lambda: campaign(*args), m["out"], {"all_reduce": 0, "all_gather": 2},
+                      m["launches"], m["routes"])
+        del m, args
+
+        # (c) The 5-degree grid of phase 10 (bfgs-30) on a (model 1, cells 1) mesh.
+        g = report.pop("gridded_f32")
+        gstep = bt.make_sharded_gridded_step(mesh_mc, n_optim_nits=GRID_NITS, **GRID_KW)
+        ok &= surface(f"make_sharded_gridded_step, {GRID_M} x {GRID_LAT * GRID_LON} cells, "
+                      f"bfgs-{GRID_NITS}", lambda: gstep(g["blk"], g["ob"], g["mk"], None),
+                      g["out"], {"all_reduce": 3, "all_gather": 0}, g["launches"], g["routes"])
+        del g
+        report["sharded_launches"] = launches
+
+        # (d) The annual step (scenario 0: 16 models) on one rank, then on two
+        # gloo ranks sharing the card.
+        hb, hm, sb, sm, obs, mm = inputs
+        scenario0 = (hb[0], hm[0], sb[0], sm[0], obs, mm[0])
+        runs = {"float64": [a.astype(np.float64) if a.dtype.kind == "f" else a for a in scenario0],
+                "float32": [_f32(a) for a in scenario0]}
+        one = bt.make_sharded_step(mesh_1d, n_optim_nits=PARITY_NITS, dba_iterations=10)
+        ref, ref_launches = {}, {}
+        for dtype, arrays in runs.items():
+            bt.reset_launch_counts()
+            dt, got = _wall(torch, lambda: one(*arrays))
+            ref[dtype] = [_local(r).cpu().numpy() for r in got]
+            ref_launches[dtype] = bt.launch_counts()
+            log(f"[sharded] make_sharded_step, one rank, {m_} models, {PARITY_NITS} Adam steps, "
+                f"{dtype}: {dt:.3f} s")
+    finally:
+        dist.destroy_process_group()
+    t0 = time.perf_counter()
+    two = bt.parallel.run_local(sharded_two_rank_worker, 2, runs, PARITY_NITS, dev.type,
+                                timeout=SHARDED_TIMEOUT)
+    dt = time.perf_counter() - t0
+    log(f"[sharded] gloo on {dev.type} tensors, two ranks on the card: {two['probe']}")
+    if all(dtype in two for dtype in runs):
+        log(f"[sharded] make_sharded_step on two ranks ({m_ // 2} models each), float64 then "
+            f"float32: {dt:.1f} s with the processes' start")
+        for dtype in runs:
+            res = two[dtype]
+            gap = max(float(np.abs(a - b).max()) for a, b in zip(res["values"], ref[dtype]))
+            ok &= (gap < SHARDED_TWO_RANK_DEGC[dtype] and res["launches"] == ref_launches[dtype]
+                   and res["collectives"] == {"all_reduce": 3, "all_gather": 0})
+            log(f"[sharded]   {dtype}: vs one rank max |d| {gap:.3e} (gate "
+                f"{SHARDED_TWO_RANK_DEGC[dtype]}); rank 0's collectives {res['collectives']}, "
+                f"launches {res['launches']} (the one-rank run's: "
+                f"{res['launches'] == ref_launches[dtype]})")
+    else:
+        log("[sharded] gloo refuses CUDA tensors for a collective of the sharded paths, so the "
+            "two-rank run is not made")
+    log(f"[sharded] phase 12: {time.perf_counter() - t_phase:.1f} s")
+    if not ok:
+        print("chip_smoke: a sharded surface failed its check", file=sys.stderr)
+    return ok
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of the synthetic inputs")
@@ -2331,6 +2559,7 @@ def main(argv=None):
         f"{counts[counts > 0].min()}..{counts.max()}; real models per scenario "
         f"{inputs[5].sum(axis=1).astype(int).tolist()}")
 
+    log(f"[time] {time.perf_counter() - t_start:.1f} s at the start of phase 3")
     # Phase 3: kernels against their plain versions.
     report = {"dba_update": [], "dba_update_split": [], "chol_solve": [], "tri_inv": [], "chol": [],
               "dtw_cost": [], "dtw_cost_f64": [], "solve_vec": [], "solve_vec_f64": [],
@@ -2345,6 +2574,7 @@ def main(argv=None):
         return 1
     del monthly_pack
 
+    log(f"[time] {time.perf_counter() - t_start:.1f} s at the start of phase 4")
     # Phase 4: the slice through the kernels, then the f64 plain reference.
     bt.reset_launch_counts()
     dt, (bm, bs, w) = _wall(torch, lambda: run_slice(torch, bt, inputs, dev, torch.float32,
@@ -2381,6 +2611,7 @@ def main(argv=None):
         print("chip_smoke: a weight kind's tail or the float64 refinement disagrees", file=sys.stderr)
         return 1
 
+    log(f"[time] {time.perf_counter() - t_start:.1f} s at the start of phase 5")
     # Phase 5: the faithful workload.
     walls = []
     for rep in range(TIMING_REPS + 1):
@@ -2405,30 +2636,42 @@ def main(argv=None):
     log(f"[timing] fit: {per_step:.3f} ms per Adam step and collection, of which the two linalg "
         f"kernels take {kern:.3f} ms (the rest is launch overhead and small ops)")
 
+    log(f"[time] {time.perf_counter() - t_start:.1f} s at the start of phase 6")
     # Phase 6: the native-monthly dedup campaign.
     if not run_monthly(torch, bt, dev, args.seed, report):
         return 1
 
+    log(f"[time] {time.perf_counter() - t_start:.1f} s at the start of phase 7")
     # Phase 7: the reference-faithful (subgradient) DBA, and the medoid init.
     if not run_subgradient(torch, bt, inputs, dev, report):
         return 1
 
+    log(f"[time] {time.perf_counter() - t_start:.1f} s at the start of phase 8")
     # Phase 8: the bench's fast fit routes.
     if not run_fast_routes(torch, bt, inputs, dev, step_out, ems, scratch_out):
         print("chip_smoke: a fast fit route failed its check", file=sys.stderr)
         return 1
 
+    log(f"[time] {time.perf_counter() - t_start:.1f} s at the start of phase 9")
     # Phase 9: the library API.
     library_ok, fitted, results = run_library(torch, bt, inputs, dev, step_out, report)
     if not library_ok:
         return 1
 
+    log(f"[time] {time.perf_counter() - t_start:.1f} s at the start of phase 10")
     # Phase 10: the gridded surface at the 5-degree grid.
     if not run_gridded(torch, bt, dev, report):
         return 1
 
+    log(f"[time] {time.perf_counter() - t_start:.1f} s at the start of phase 11")
     # Phase 11: the perfect-model test and serving, on phase 9's posteriors.
     if not run_validation(torch, bt, dev, inputs, fitted, results, report):
+        return 1
+
+    log(f"[time] {time.perf_counter() - t_start:.1f} s at the start of phase 12")
+    # Phase 12: the sharded surfaces, held to phases 4, 6 and 10.
+    if not run_sharded(torch, bt, dev, inputs, dict(out=step_out, launches=launches,
+                                                   routes=routes), report):
         return 1
 
     # Each kernel's row: its time and bound at the first shape it was checked
@@ -2469,7 +2712,8 @@ def main(argv=None):
                                  "library": report["library_launches"][name],
                                  "gridded": report["gridded_launches"][name],
                                  "validation": report["validation_launches"][name],
-                                 "serve": report["serve_launches"][name]},
+                                 "serve": report["serve_launches"][name],
+                                 "sharded": report["sharded_launches"].get(name, 0)},
             "max_abs_err": max(r["err"] for r in report[name]),
             "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": main_shape["library_ms"],

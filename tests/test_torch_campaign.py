@@ -180,8 +180,6 @@ def test_run_dedup_campaign_defaults_to_the_card():
 def test_unported_campaign_options_raise():
     scen, obs = scenarios(4)
     pack = tcampaign.pack_dedup_campaign(scen)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item A10"):
-        tcampaign.make_sharded_dedup_campaign(None)
     with pytest.raises(ValueError, match="unknown weight_kind"):
         tcampaign.run_dedup_campaign(pack, obs, weight_kind="nope", device="cpu", **FIT_KW)
 

@@ -138,3 +138,108 @@ def test_fit_unported_options_raise():
         tgp.fit_gp_batch_dispatch(x, y, v, n_optim_nits=1, time_stride=0)
     with pytest.raises(ValueError, match="fine_steps"):
         tgp.fit_gp_batch_dispatch(x, y, v, n_optim_nits=1, fine_steps=2)
+
+
+def _one_model_inputs(seed, t=12, d=2):
+    rng = np.random.default_rng(seed)
+    return rng.normal(size=(t, d)), rng.normal(size=t), rng.uniform(0.05, 0.3, t)
+
+
+# How a caller names the kernel: the JAX package's kernel= with the port's
+# callable, the callable by position, the name by keyword, and kernel_name=.
+SPELLINGS = ("kernel=callable", "positional", "kernel=name", "kernel_name=")
+
+
+def _spell(spelling, kernel_name):
+    kern = tgp.get_kernel(kernel_name)
+    return {"kernel=callable": ((), dict(kernel=kern)), "positional": ((kern,), {}),
+            "kernel=name": ((), dict(kernel=kernel_name)),
+            "kernel_name=": ((), dict(kernel_name=kernel_name))}[spelling]
+
+
+@pytest.mark.parametrize("spelling", SPELLINGS)
+@pytest.mark.parametrize("kernel_name", ["matern32", "rbf"])
+def test_single_model_api_takes_the_reference_arguments(kernel_name, spelling):
+    """nlml, posterior and posterior_marginals take a GPParams and the kernel
+    as the JAX functions do (ROADMAP C13), and match them in float64; the
+    NLML's gradient in the GPParams leaves matches JAX's too."""
+    x, y, nv = _one_model_inputs(3)
+    jparams = jgp.GPParams(jnp.asarray(0.4), jnp.asarray(-0.2))
+    params = tgp.GPParams(torch.tensor(0.4, dtype=torch.float64),
+                          torch.tensor(-0.2, dtype=torch.float64))
+    args, kw = _spell(spelling, kernel_name)
+    jargs = (jnp.asarray(x), jnp.asarray(y), jnp.asarray(nv), jgp.get_kernel(kernel_name))
+    targs = (torch.from_numpy(x), torch.from_numpy(y), torch.from_numpy(nv))
+    got = tgp.nlml(params, *targs, *args, **kw)
+    np.testing.assert_allclose(got.item(), float(jgp.nlml(jparams, *jargs)), rtol=0, atol=1e-10)
+    got.backward()
+    want = jax.grad(jgp.nlml)(jparams, *jargs)
+    np.testing.assert_allclose([params.raw_lengthscale.grad.item(), params.raw_variance.grad.item()],
+                               [float(want.raw_lengthscale), float(want.raw_variance)], atol=1e-10)
+    for tf, jf in ((tgp.posterior, jgp.posterior), (tgp.posterior_marginals, jgp.posterior_marginals)):
+        for g, w in zip(tf(params, *targs, *args, **kw), jf(jparams, *jargs)):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0, atol=1e-10)
+
+
+@pytest.mark.parametrize("kernel", ["matern32", "rbf"])
+def test_fit_gp_returns_a_gpparams_the_single_model_api_takes(kernel):
+    """fit_gp returns a one-model GPParams (0-d leaves, as JAX's), which
+    nlml, posterior and posterior_marginals take; the fit, the NLML trace
+    and the three functions at the fitted values match JAX in float64.
+    The port's kernel callable is accepted in place of the name."""
+    x, y, nv = _one_model_inputs(4)
+    jp, jl = jgp.fit_gp(jnp.asarray(x), jnp.asarray(y), jnp.asarray(nv), kernel_name=kernel,
+                        n_optim_nits=10)
+    targs = (torch.from_numpy(x), torch.from_numpy(y), torch.from_numpy(nv))
+    tp_, tl = tgp.fit_gp(*targs, tgp.get_kernel(kernel), n_optim_nits=10)
+    assert isinstance(tp_, tgp.GPParams) and tp_.raw_lengthscale.shape == ()
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=0, atol=1e-9)
+    np.testing.assert_allclose([tp_.raw_lengthscale.item(), tp_.raw_variance.item()],
+                               [float(jp.raw_lengthscale), float(jp.raw_variance)], atol=1e-9)
+    jargs = (jnp.asarray(x), jnp.asarray(y), jnp.asarray(nv))
+    jkern = jgp.get_kernel(kernel)
+    np.testing.assert_allclose(tgp.nlml(tp_, *targs, kernel=kernel).item(),
+                               float(jgp.nlml(jp, *jargs, kernel=jkern)), atol=1e-8)
+    for tf, jf in ((tgp.posterior, jgp.posterior), (tgp.posterior_marginals, jgp.posterior_marginals)):
+        for g, w in zip(tf(tp_, *targs, kernel_name=kernel), jf(jp, *jargs, kernel=jkern)):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0, atol=1e-8)
+
+
+def test_single_model_api_takes_any_kernel_callable():
+    """A kernel written by the caller, (params, x1, x2) -> K on the GPParams,
+    as the JAX package allows."""
+    x, y, nv = _one_model_inputs(5)
+
+    def jperiodic(p, x1, x2):
+        d = jnp.sqrt(jnp.sum((x1[:, None] - x2[None]) ** 2, axis=-1) + 1e-36)
+        return p.variance * jnp.exp(-2.0 * jnp.sin(d / 2.0) ** 2 / p.lengthscale**2)
+
+    def tperiodic(p, x1, x2):
+        d = torch.sqrt(torch.sum((x1[:, None] - x2[None]) ** 2, dim=-1) + 1e-36)
+        return p.variance * torch.exp(-2.0 * torch.sin(d / 2.0) ** 2 / p.lengthscale**2)
+
+    jparams = jgp.GPParams(jnp.asarray(0.7), jnp.asarray(0.1))
+    params = tgp.GPParams(torch.tensor(0.7, dtype=torch.float64),
+                          torch.tensor(0.1, dtype=torch.float64))
+    targs = (torch.from_numpy(x), torch.from_numpy(y), torch.from_numpy(nv))
+    jargs = (jnp.asarray(x), jnp.asarray(y), jnp.asarray(nv))
+    np.testing.assert_allclose(tgp.nlml(params, *targs, tperiodic).item(),
+                               float(jgp.nlml(jparams, *jargs, jperiodic)), atol=1e-10)
+    for g, w in zip(tgp.posterior_marginals(params, *targs, kernel=tperiodic),
+                    jgp.posterior_marginals(jparams, *jargs, kernel=jperiodic)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0, atol=1e-10)
+
+
+def test_single_model_api_refusals():
+    x, y, nv = (torch.from_numpy(a) for a in _one_model_inputs(6))
+    params = tgp.GPParams(torch.tensor(0.0, dtype=torch.float64), torch.tensor(0.0, dtype=torch.float64))
+    with pytest.raises(TypeError, match="not both"):
+        tgp.nlml(params, x, y, nv, tgp.rbf, kernel_name="rbf")
+    with pytest.raises(ValueError, match="unknown kernel"):
+        tgp.posterior(params, x, y, nv, kernel="periodic")
+    with pytest.raises(ValueError, match="0-d"):
+        tgp.GPParams(torch.zeros(2), torch.zeros(2))
+    with pytest.raises(ValueError, match="named kernels"):
+        tgp.fit_gp(x, y, nv, lambda p, a, b: a @ b.T, n_optim_nits=1)
+    with pytest.raises(ValueError, match="one model"):
+        tgp.nlml(tgp.init_params(2, device="cpu", dtype=torch.float64), x, y, nv)

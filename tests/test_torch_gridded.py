@@ -255,21 +255,6 @@ def test_refined_gridded_f64_accepts_tensors_from_the_port_step():
     assert np.isfinite(refined[0]).all() and drift < 1e-4
 
 
-@pytest.mark.parametrize("call", ["sharded_gridded_marginals", "make_sharded_gridded_step",
-                                  "model_axis", "coarse_mesh", "coarse_fit_mesh"])
-def test_sharded_surfaces_raise_naming_a10(call):
-    block, obs, mask = gridded_blocks(12)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item A10"):
-        if call == "model_axis":
-            tg.gridded_ensemble_step(*_t(block, obs, mask), model_axis="model", **KW)
-        elif call == "coarse_mesh":
-            tg.coarse_warm_start(*_t(block, mask), 2, 2, 1, mesh=object())
-        elif call == "coarse_fit_mesh":
-            tg.coarse_fit_params(*_t(block[0], mask[0]), mesh=object())
-        else:
-            getattr(tg, call)(None)
-
-
 def test_gridded_step_rejects_unknown_options_before_fitting():
     block, obs, mask = gridded_blocks(13)
     with pytest.raises(ValueError, match="sigma_mode"):

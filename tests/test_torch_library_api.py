@@ -401,7 +401,7 @@ def test_single_model_gp_api_matches_jax(kernel_name):
     tp_, tl = tgp.fit_gp(torch.from_numpy(x), torch.from_numpy(y), torch.from_numpy(nv),
                          kernel_name=kernel_name, n_optim_nits=8)
     close(tl, jl, 1e-9)
-    close(tp_.raw_lengthscale[0], jp.raw_lengthscale, 1e-9)
+    close(tp_.raw_lengthscale, jp.raw_lengthscale, 1e-9)
     # At the same hyperparameters.
     p = convert.gp_params_from_jax(np.asarray(jp.raw_lengthscale)[None],
                                    np.asarray(jp.raw_variance)[None], "cpu", torch.float64)

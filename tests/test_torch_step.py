@@ -128,7 +128,6 @@ def test_pad_models_matches_jax():
     "option,item",
     [
         (dict(optimizer="lbfgs"), "A6b"),
-        (dict(model_axis="model"), "A10"),
     ],
 )
 def test_unported_options_raise(option, item):

@@ -123,8 +123,6 @@ def test_weight_options_refused():
         tstep.fused_raw_weights("nope", *_torch(mean, var, obs))
     with pytest.raises(ValueError, match="inverse_square needs"):
         tstep.fused_raw_weights("inverse_square", *_torch(mean, var, obs))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item A10"):
-        tstep.fused_raw_weights("crps", *_torch(mean, var, obs), model_axis="model")
 
 
 def _fitted(hb, hm, sb, sm):
