@@ -1,17 +1,9 @@
-"""The errors every entry point shares: an option of the JAX package that
-the port lacks, and a CUDA device asked for where there is none."""
+"""The error every entry point shares: a CUDA device asked for where there
+is none."""
 
 from __future__ import annotations
 
 import torch
-
-
-def not_ported(what: str, roadmap_item: str) -> NotImplementedError:
-    """``NotImplementedError`` naming the ROADMAP.md item that will port ``what``."""
-    return NotImplementedError(
-        f"{what} is not ported to bayesian_ensembling_tpu_torch yet "
-        f"(ROADMAP.md item {roadmap_item}); use bayesian_ensembling_tpu for it"
-    )
 
 
 def resolve_device(device: str | torch.device, who: str) -> torch.device:

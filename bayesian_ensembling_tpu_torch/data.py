@@ -26,7 +26,7 @@ import warnings
 import numpy as np
 import torch
 
-from bayesian_ensembling_tpu_torch._errors import not_ported, resolve_device
+from bayesian_ensembling_tpu_torch._errors import resolve_device
 from bayesian_ensembling_tpu_torch.coords import DimArray
 from bayesian_ensembling_tpu_torch.io import timeutils
 from bayesian_ensembling_tpu_torch.ops.distributions import (
@@ -422,21 +422,28 @@ class ModelCollection:
 
     def save(self, path: str, backend: str = "npz"):
         """Pickle-free checkpoint of the collection (data, climatology and
-        fitted posteriors) as one compressed npz archive, in the JAX
-        package's format."""
+        fitted posteriors) in the JAX package's formats: ``backend="npz"``,
+        one compressed npz archive; ``backend="orbax"``, an orbax checkpoint
+        directory (written with ``tensorstore``, ``io/orbax_ckpt.py``)."""
         if backend == "npz":
             np.savez_compressed(path, **self._to_blobs())
         elif backend == "orbax":
-            raise not_ported("ModelCollection.save(backend='orbax')", "A7b-2")
+            from bayesian_ensembling_tpu_torch.io import orbax_ckpt
+
+            orbax_ckpt.save_blobs(path, self._to_blobs())
         else:
             raise ValueError(f"unknown checkpoint backend {backend!r}")
 
     @classmethod
     def load(cls, path: str, device: tp.Union[str, torch.device] = "cuda") -> "ModelCollection":
-        """Load an npz checkpoint written by either package; fitted
-        posteriors' moments are placed on ``device``."""
+        """Load a checkpoint written by either package (an npz archive, or an
+        orbax checkpoint directory); fitted posteriors' moments are placed
+        on ``device``."""
         if os.path.isdir(path):  # orbax checkpoints are directories
-            raise not_ported("ModelCollection.load of an orbax checkpoint directory", "A7b-2")
+            from bayesian_ensembling_tpu_torch.io import orbax_ckpt
+
+            blobs = orbax_ckpt.load_blobs(path)
+            return cls._from_blobs(blobs, list(blobs), device=device)
         # np.savez_compressed appends '.npz' to extensionless paths: accept
         # the same spelling the caller used with save().
         if not os.path.exists(path) and os.path.exists(path + ".npz"):

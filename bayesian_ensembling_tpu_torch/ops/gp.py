@@ -3,9 +3,9 @@
 PyTorch counterpart of ``bayesian_ensembling_tpu/ops/gp.py``: the softplus
 hyperparameters, the Matern-3/2 and RBF kernels with the distance statistic
 hoisted out of the optimisation loop, the DBA preamble (classic or
-subgradient DBA), the batched fit on the exact NLML (Adam or the per-model
-damped BFGS; merged, host-chunked or coarse-to-fine in time), the posterior
-marginals and the full-covariance posterior, and the single-model API
+subgradient DBA), the batched fit on the exact NLML (Adam, the per-model
+damped BFGS or optax's L-BFGS; merged, host-chunked or coarse-to-fine in
+time), the posterior marginals and the full-covariance posterior, and the single-model API
 (:func:`nlml`, :func:`posterior`, :func:`posterior_marginals`,
 :func:`fit_gp`) on the JAX package's arguments: a :class:`GPParams` of one
 model and a kernel callable.
@@ -31,8 +31,8 @@ import warnings
 import torch
 from torch import nn
 
-from bayesian_ensembling_tpu_torch._errors import not_ported
 from bayesian_ensembling_tpu_torch.ops import dtw as dtw_ops
+from bayesian_ensembling_tpu_torch.ops import lbfgs as lbfgs_ops
 from bayesian_ensembling_tpu_torch.ops import linalg_cuda
 from bayesian_ensembling_tpu_torch.ops.linalg_blocked import nlml_terms_blocked
 
@@ -314,6 +314,20 @@ class _BatchBFGS:
         self.pend_ok = torch.zeros((m,), dtype=torch.bool, device=like["device"])
 
 
+class _LBFGS:
+    """State of ``optimizer="lbfgs"``: ``optax.lbfgs()``'s, as
+    :class:`~bayesian_ensembling_tpu_torch.ops.lbfgs.LBFGSState` over the
+    leaves ``(raw_lengthscale, raw_variance)`` stacked ``(2, M)``.  One line
+    search, so one step size, serves the batch's summed objective."""
+
+    def __init__(self, params: BatchedGPParams):
+        self.state = lbfgs_ops.init(_stack_leaves(params))
+
+
+def _stack_leaves(params) -> torch.Tensor:
+    return torch.stack([params.raw_lengthscale.detach(), params.raw_variance.detach()])
+
+
 def _make_batch_opt(optimizer: str, learning_rate: float, params: BatchedGPParams):
     """The optimiser state of every batched-fit entry point (one place, so
     the merged fit and the host-chunked segments cannot drift)."""
@@ -322,7 +336,7 @@ def _make_batch_opt(optimizer: str, learning_rate: float, params: BatchedGPParam
     if optimizer == "bfgs":
         return _BatchBFGS(params)
     if optimizer == "lbfgs":
-        raise not_ported("optimizer='lbfgs' (optax L-BFGS with a zoom line search)", "A6b")
+        return _LBFGS(params)
     raise ValueError(f"unknown optimizer {optimizer!r}")
 
 
@@ -363,6 +377,31 @@ def _build_batch_step(x, y, noise_var, kernel_name, jitter, optimizer):
             per_model, grads = value_and_grad(params)
             opt.step([params.raw_lengthscale, params.raw_variance], grads)
             return per_model
+
+        return step
+
+    if optimizer == "lbfgs":
+
+        def summed_value_and_grad(z):
+            # optax's value_and_grad of the summed objective at the stacked
+            # leaves z (2, M).
+            with torch.enable_grad():
+                z = z.detach().requires_grad_(True)
+                total = nlml_vec(types.SimpleNamespace(
+                    lengthscale=softplus(z[0]), variance=softplus(z[1]))).sum()
+                (grad,) = torch.autograd.grad(total, z)
+            return total.detach(), grad
+
+        def step(params, opt):
+            # optax.lbfgs's update at the iterate, then the loss the JAX
+            # package records: every model's NLML after the update (one
+            # more forward, no gradient).
+            z, opt.state = lbfgs_ops.update(summed_value_and_grad, _stack_leaves(params),
+                                            opt.state)
+            with torch.no_grad():
+                params.raw_lengthscale.copy_(z[0])
+                params.raw_variance.copy_(z[1])
+                return nlml_vec(params)
 
         return step
 
@@ -444,8 +483,16 @@ def _warn_non_finite(losses: torch.Tensor, t: int, optimizer: str) -> None:
     Gram that is not positive definite in the working precision)."""
     bad = torch.nonzero(~torch.isfinite(losses).all(dim=1)).flatten().tolist()
     if bad:
-        fate = ("bfgs reset them to the scratch initialisation" if optimizer == "bfgs"
-                else "their fitted hyperparameters are not usable")
+        fate = {
+            "bfgs": "bfgs reset them to the scratch initialisation",
+            # One line search steps the summed objective: a trial point
+            # where it is non-finite only shortens the step, but a
+            # non-finite iterate makes the direction non-finite and
+            # optax's safe step of size 0 turns every model's
+            # hyperparameters NaN.
+            "lbfgs": ("lbfgs sums the batch into one objective, so a non-finite model at the "
+                      "iterate turns every model's hyperparameters NaN; refit without it"),
+        }.get(optimizer, "their fitted hyperparameters are not usable")
         warnings.warn(
             f"fit_gp_batch: the NLML of model(s) {bad} of {losses.shape[0]} went non-finite at "
             f"T={t} ({losses.dtype}); {fate}",
@@ -493,9 +540,12 @@ def fit_gp_batch(
     """Fit ``M`` independent GPs on the summed exact NLML.
 
     The models are independent, so the gradient of the sum is each model's
-    own gradient.  ``optimizer="adam"`` (the reference's) or ``"bfgs"``
+    own gradient.  ``optimizer="adam"`` (the reference's), ``"bfgs"``
     (per-model damped quasi-Newton in the two raw hyperparameters, which
-    converges in about 30 steps).  A model whose loss goes non-finite draws
+    converges in about 30 steps) or ``"lbfgs"`` (``optax.lbfgs()``,
+    :mod:`~bayesian_ensembling_tpu_torch.ops.lbfgs`: one zoom line search,
+    so one step size, for the summed objective; the recorded loss is each
+    model's NLML after the step).  A model whose loss goes non-finite draws
     a warning naming it; the fit itself goes on, as in the JAX package.
 
     Args:

@@ -247,8 +247,9 @@ def run_scenario(
     ``fit_chunk_steps``), each chunk ended by a device synchronisation.
     ``time_stride``/``fine_steps``: coarse-to-fine-in-time fit for native
     monthly resolution (``ops/gp.fit_gp_batch_warm_time``).
-    ``optimizer``: "adam" (reference-faithful default) or "bfgs"
-    (per-model damped quasi-Newton; use with n_optim_nits ~ 30-60).
+    ``optimizer``: "adam" (reference-faithful default), "bfgs"
+    (per-model damped quasi-Newton; use with n_optim_nits ~ 30-60) or
+    "lbfgs" (optax's L-BFGS: one line search for each fit's summed NLML).
     ``profile``: "faithful" (default, no changes) | "fast", one switch for
     the preset schedule of the workload's regime (``utils/profiles.py``;
     resolution inferred from the historical time axis).  Mutually exclusive

@@ -32,8 +32,8 @@ def add_optimizer_arg(ap: argparse.ArgumentParser) -> None:
         default="adam",
         help="hyperparameter optimiser: 'adam' (reference-faithful, the "
         "default), 'bfgs' (per-model damped quasi-Newton; pair with a small "
-        "--n-optim-nits, e.g. 30-60) or 'lbfgs' (the JAX package's L-BFGS, "
-        "not ported yet: the fit raises naming its ROADMAP.md item)",
+        "--n-optim-nits, e.g. 30-60) or 'lbfgs' (optax's L-BFGS with a zoom "
+        "line search: one step size for the batch's summed objective)",
     )
 
 

@@ -150,6 +150,26 @@ Phases, in order; any failure exits non-zero:
    scenario 0 (16 models, 500 Adam steps) as two gloo ranks sharing the
    card, against one rank within 1e-5 degC.  Each surface is timed once.
 
+13. ``optimizer="lbfgs"`` (optax's L-BFGS: one zoom line search for each
+   fit's summed objective): scenario 0 through ``ensemble_scenario_step``
+   (30 steps a fit) in float64 on the card and on the CPU, with equal
+   line-search counts at every step, the summed objective within 1e-9
+   relative at every step and the barycentre within 1e-5 degC; the full
+   flagship through ``ensemble_multi_scenario_step`` at 150 steps in
+   float32, every launch and route counter against the evaluations the
+   line search reports, every step's objective finite, one run timed
+   after a warm-up with its evaluations and host synchronisations a step,
+   and its distance to phase 8's truth printed beside Adam-2000's and
+   bfgs-30's; the same in float64 on the card (0.01 degC); and
+   ``run_scenario(optimizer="lbfgs")`` for scenario 0 (30 steps), float32
+   against float64 on the card (0.01 degC).
+
+14. The port's four examples (``bayesian_ensembling_tpu_torch/examples``:
+   quickstart, monthly_warm, gridded_quickstart, gridded_refined) on the
+   card in float32, each against its own float64 run on the CPU (0.01 degC
+   on the numbers it prints), each launching the DBA update, the fused
+   Cholesky-solve and the triangular inverse.
+
 The last lines are a JSON summary of the kernels, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
 """
@@ -1283,9 +1303,10 @@ def _timed_runs(torch, fn, label):
     return statistics.median(walls), out
 
 
-def run_fast_routes(torch, bt, inputs, dev, step_out, ems, scratch_out):
+def run_fast_routes(torch, bt, inputs, dev, step_out, ems, scratch_out, report):
     """Phase 8: the coarse-to-fine-in-time route, the 30-step BFGS and the
-    chunked fit, at the flagship shape."""
+    chunked fit, at the flagship shape.  Keeps the truth's and bfgs-30's
+    moments in ``report`` for phase 13."""
     from bayesian_ensembling_tpu_torch.ops import gp as gp_ops
 
     ok = True
@@ -1312,6 +1333,7 @@ def run_fast_routes(torch, bt, inputs, dev, step_out, ems, scratch_out):
     log(f"[bfgs] the {TRUTH_NITS}-step Adam truth: {dt_truth:.1f} s; the staged bfgs run equals the "
         f"timed one bit for bit: {same}")
     ok &= same and _bfgs_gate(torch, bt, inputs, dev, staged_bfgs, truth, scratch_out)
+    report["truth_out"], report["bfgs_out"] = truth[0], staged_bfgs[0]
 
     marg, same_params = [], True
     for (block, mask), (_, _, params, _, _) in zip(_collections(torch, inputs, dev, torch.float32), ems):
@@ -2517,6 +2539,177 @@ def run_sharded(torch, bt, dev, inputs, annual, report, backend="nccl"):
     return ok
 
 
+# Phase 13: optimizer="lbfgs" (optax.lbfgs(): one zoom line search for each
+# fit's summed objective) at the flagship's width.
+LBFGS_NITS = 150  # the JAX package's measured configuration (benchmarks/lbfgs_bench.py:45)
+LBFGS_CHECK_NITS = 30  # (a): scenario 0 in float64, card against CPU; (d)'s depth
+LBFGS_WARMUP_NITS = 10  # (b)'s warm-up
+# (a)'s gate on the summed objective at every step, relative.  It sits near
+# what round-off allows: a float64 L-BFGS trajectory doubles a change of one
+# rounding about every step, so that on scenario 0 a 1e-15 relative change
+# of the historical block moves the objective by up to 1.8e-9 within 30
+# steps on the CPU, and the JAX package parts from itself as fast
+# (tests/test_torch_lbfgs.py::test_fit_free_running_parts_like_jax_from_itself;
+# ROADMAP C16).  The card's float64 run, deterministic, parts from the CPU's
+# by 5.1e-10 (PERF.md section 6, PR 12).
+LBFGS_LOSS_REL = 1e-9
+LBFGS_F64_DEGC = 1e-5  # (a): the barycentre, float64 card against float64 CPU
+
+
+def lbfgs_expected_launches(evals, nits, n_fits=2, dba_iterations=10):
+    """The kernel launches of ``n_fits`` lbfgs fits on the kernel route and
+    their posteriors: B2 for every value-and-gradient evaluation, for the
+    loss recorded after each step and for the posterior; B3 for every
+    evaluation's backward and the posterior's variance.  ``evals``: the
+    line search's evaluations plus the fresh ones (``ops.lbfgs.counts()``)."""
+    launches = {"dba_update": n_fits * dba_iterations, "dba_update_split": 0,
+                "chol_solve": evals + n_fits * (nits + 1), "tri_inv": evals + n_fits, "chol": 0,
+                "dtw_cost": 0, "solve_vec": 0}
+    routes = {"kernel": 2 * evals + n_fits * (nits + 2), "blocked": 0, "library": 0}
+    return launches, routes
+
+
+def run_lbfgs(torch, bt, inputs, dev, report, scratch_out, nits=LBFGS_NITS,
+              check_nits=LBFGS_CHECK_NITS):
+    """Phase 13: (a) scenario 0 through ``ensemble_scenario_step(optimizer=
+    "lbfgs")`` in float64 on the card and on the CPU, equal line-search
+    counts at every step; (b) the full flagship through
+    ``ensemble_multi_scenario_step(optimizer="lbfgs")`` in float32, every
+    launch counter against the evaluations the line search reports, every
+    step's objective finite, one run timed after a warm-up, its distance to
+    phase 8's truth printed beside Adam-2000's and bfgs-30's; (c) (b) in
+    float32 against float64 on the card; (d) ``run_scenario(optimizer=
+    "lbfgs")`` for scenario 0, float32 against float64 on the card."""
+    from bayesian_ensembling_tpu_torch.ops import lbfgs
+
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    hb, hm, sb, sm, obs, mm = inputs
+    scenario0 = (hb[0], hm[0], sb[0], sm[0], obs, mm[0])
+    kw = dict(dba_iterations=10, optimizer="lbfgs")
+    runs = {}
+    for where in (dev, cpu):
+        lbfgs.reset_counts()
+        dt, out = _wall(torch, lambda: bt.ensemble_scenario_step(
+            *_tensors(torch, scenario0, where, torch.float64), n_optim_nits=check_nits, **kw))
+        runs[where.type] = (lbfgs.trace(), out, dt)
+    (card_tr, card_out, card_s), (cpu_tr, cpu_out, cpu_s) = runs[dev.type], runs["cpu"]
+    same_counts = [c for c, _ in card_tr] == [c for c, _ in cpu_tr]
+    loss_rel = max(abs(a - b) / max(abs(b), 1e-300) for (_, a), (_, b) in zip(card_tr, cpu_tr))
+    gap = _moments_gap(card_out, cpu_out)
+    log(f"[lbfgs] (a) scenario 0, {check_nits} steps a fit, float64: card {card_s:.2f} s, CPU "
+        f"{cpu_s:.2f} s; line-search steps per step equal at every step: {same_counts} "
+        f"({sum(c for c, _ in card_tr)} evaluations on the card, {sum(c for c, _ in cpu_tr)} on the "
+        f"CPU); summed objective max rel gap {loss_rel:.3e} (gate {LBFGS_LOSS_REL}); barycentre "
+        f"max |dmoment| {gap:.3e} degC (gate {LBFGS_F64_DEGC})")
+    ok = same_counts and len(card_tr) == 2 * check_nits and loss_rel < LBFGS_LOSS_REL
+    ok &= gap < LBFGS_F64_DEGC
+
+    # (b) The flagship in float32: a short warm-up (the allocator's pools;
+    # nothing is compiled), then the counted, timed run.
+    run_slice(torch, bt, inputs, dev, torch.float32, LBFGS_WARMUP_NITS, **kw)
+    lbfgs.reset_counts()
+    bt.reset_launch_counts()
+    dt, out = _wall(torch, lambda: run_slice(torch, bt, inputs, dev, torch.float32, nits, **kw))
+    launches, routes, counts, tr = (bt.launch_counts(), bt.route_counts(), lbfgs.counts(),
+                                    lbfgs.trace())
+    evals = counts["linesearch_evals"] + counts["fresh_evals"]
+    want_launches, want_routes = lbfgs_expected_launches(evals, nits)
+    finite = (len(tr) == 2 * nits and all(np.isfinite(v) for _, v in tr)
+              and all(bool(torch.isfinite(a).all()) for a in out))
+    steps = 2 * nits
+    log(f"[lbfgs] (b) flagship float32, {nits} steps a fit: {dt:.3f} s ({dt / steps * 1e3:.3f} ms a "
+        f"step and collection); {evals / steps:.3f} evaluations and "
+        f"{counts['host_syncs'] / steps:.3f} host synchronisations a step ({counts}); launches "
+        f"{launches} (expected {want_launches}); routes {routes} (expected {want_routes}); every "
+        f"step's objective finite: {finite}")
+    report["lbfgs_launches"] = launches
+    ok &= _counts_match(launches, want_launches) and _counts_match(routes, want_routes) and finite
+    if "truth_out" in report:
+        truth = report["truth_out"]
+        log(f"[lbfgs] (b) distance to phase 8's {TRUTH_NITS}-step Adam truth: lbfgs-{nits} "
+            f"{_moments_gap(out, truth):.4e} degC, Adam-{TIMING_NITS} "
+            f"{_moments_gap(scratch_out, truth):.4e} degC, bfgs-{BFGS_NITS} "
+            f"{_moments_gap(report['bfgs_out'], truth):.4e} degC (printed only: one step size "
+            f"serves all {S * M} models of a fit)")
+
+    # (c) The same in float64 on the card.
+    dt64, out64 = _wall(torch, lambda: run_slice(torch, bt, inputs, dev, torch.float64, nits, **kw))
+    gap = _moments_gap(out, out64)
+    log(f"[lbfgs] (c) float64 on the card {dt64:.3f} s; float32 vs float64 max |dmoment| "
+        f"{gap:.3e} degC (gate {PARITY_DEGC})")
+    ok &= gap < PARITY_DEGC
+
+    # (d) The library entry point for scenario 0, at (a)'s depth.
+    built, observations = library_scenarios(bt, inputs)
+    hist, ssp = built[0]
+    res = {}
+    for dtype in (torch.float32, torch.float64):
+        bt.reset_launch_counts()
+        dt, res[dtype] = _wall(torch, lambda: bt.run_scenario(
+            hist, ssp, observations, "scenario0", emulator=bt.GPDTW1D(dtype=dtype),
+            n_optim_nits=check_nits, optimizer="lbfgs", device=dev))
+        lc = bt.launch_counts()
+        log(f"[lbfgs] (d) run_scenario {str(dtype)[6:]}: {dt:.3f} s; launches {lc}")
+        ok &= _launched(lc, ("dba_update", "chol_solve", "tri_inv"))
+    (m32, s32), (m64, s64) = _bary(torch, [res[torch.float32]]), _bary(torch, [res[torch.float64]])
+    gap = max(_abs(m32[0], m64[0]), _abs(s32[0], s64[0]))
+    log(f"[lbfgs] (d) float32 vs float64 max |dmoment| {gap:.3e} degC (gate {PARITY_DEGC})")
+    ok &= gap < PARITY_DEGC
+    log(f"[lbfgs] phase 13: {time.perf_counter() - t_phase:.1f} s")
+    if not ok:
+        print("chip_smoke: the lbfgs phase failed its check", file=sys.stderr)
+    return ok
+
+
+def _counts_match(got, want):
+    return got == want
+
+
+def _launched(counts, names):
+    """Whether every kernel in ``names`` launched in the run just counted."""
+    return all(counts[n] > 0 for n in names)
+
+
+# Phase 14: the port's examples on the card, each against its own float64
+# run on the CPU; the numbers compared, and the kernels each must launch.
+EXAMPLES = {"quickstart": ("mean", "sd"), "monthly_warm": ("mean", "sd"),
+            "gridded_quickstart": ("mean_final",), "gridded_refined": ("refined_mean",)}
+EXAMPLE_KERNELS = ("dba_update", "chol_solve", "tri_inv")
+
+
+def run_examples(torch, bt, dev, report):
+    """Phase 14: ``bayesian_ensembling_tpu_torch.examples.*.main`` on the
+    card (float32, its default) against ``--device cpu --dtype float64``
+    (0.01 degC on the numbers it prints), with each run's launches."""
+    import importlib
+
+    t_phase = time.perf_counter()
+    ok = True
+    total = {k: 0 for k in bt.launch_counts()}
+    for name, keys in EXAMPLES.items():
+        module = importlib.import_module(f"bayesian_ensembling_tpu_torch.examples.{name}")
+        bt.reset_launch_counts()
+        dt, got = _wall(torch, lambda: module.main(["--device", str(dev)]))
+        launches = bt.launch_counts()
+        t0 = time.perf_counter()
+        want = module.main(["--device", "cpu", "--dtype", "float64"])
+        cpu_s = time.perf_counter() - t0
+        gap = max(float(np.max(np.abs(np.asarray(got[k], dtype=np.float64)
+                                      - np.asarray(want[k], dtype=np.float64)))) for k in keys)
+        launched = _launched(launches, EXAMPLE_KERNELS)
+        log(f"[examples] {name}: card float32 {dt:.3f} s, CPU float64 {cpu_s:.3f} s; max |d| over "
+            f"{', '.join(keys)} {gap:.3e} degC (gate {PARITY_DEGC}); launches {launches}")
+        ok &= gap < PARITY_DEGC and launched
+        for k, v in launches.items():
+            total[k] += v
+    report["examples_launches"] = total
+    log(f"[examples] phase 14: {time.perf_counter() - t_phase:.1f} s")
+    if not ok:
+        print("chip_smoke: a port example failed its check", file=sys.stderr)
+    return ok
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of the synthetic inputs")
@@ -2648,7 +2841,7 @@ def main(argv=None):
 
     log(f"[time] {time.perf_counter() - t_start:.1f} s at the start of phase 8")
     # Phase 8: the bench's fast fit routes.
-    if not run_fast_routes(torch, bt, inputs, dev, step_out, ems, scratch_out):
+    if not run_fast_routes(torch, bt, inputs, dev, step_out, ems, scratch_out, report):
         print("chip_smoke: a fast fit route failed its check", file=sys.stderr)
         return 1
 
@@ -2672,6 +2865,16 @@ def main(argv=None):
     # Phase 12: the sharded surfaces, held to phases 4, 6 and 10.
     if not run_sharded(torch, bt, dev, inputs, dict(out=step_out, launches=launches,
                                                    routes=routes), report):
+        return 1
+
+    log(f"[time] {time.perf_counter() - t_start:.1f} s at the start of phase 13")
+    # Phase 13: optimizer="lbfgs" at the flagship's width.
+    if not run_lbfgs(torch, bt, inputs, dev, report, scratch_out):
+        return 1
+
+    log(f"[time] {time.perf_counter() - t_start:.1f} s at the start of phase 14")
+    # Phase 14: the port's examples on the card.
+    if not run_examples(torch, bt, dev, report):
         return 1
 
     # Each kernel's row: its time and bound at the first shape it was checked
@@ -2713,7 +2916,9 @@ def main(argv=None):
                                  "gridded": report["gridded_launches"][name],
                                  "validation": report["validation_launches"][name],
                                  "serve": report["serve_launches"][name],
-                                 "sharded": report["sharded_launches"].get(name, 0)},
+                                 "sharded": report["sharded_launches"].get(name, 0),
+                                 "lbfgs": report["lbfgs_launches"][name],
+                                 "examples": report["examples_launches"][name]},
             "max_abs_err": max(r["err"] for r in report[name]),
             "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": main_shape["library_ms"],

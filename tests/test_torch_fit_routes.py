@@ -157,13 +157,22 @@ def test_dispatch_routes_match_jax(route):
         (dict(chunk_steps=0), ValueError, "chunk_steps must be positive"),
         (dict(time_stride=2, fine_steps=0), ValueError, "fine_steps must be positive"),
         (dict(optimizer="sgd"), ValueError, "unknown optimizer"),
-        (dict(optimizer="lbfgs"), NotImplementedError, "ROADMAP.md item A6b"),
     ],
 )
 def test_dispatch_errors(kw, error, match):
     x, y, v = _torch(*_inputs(1))
     with pytest.raises(error, match=match):
         tgp.fit_gp_batch_dispatch(x, y, v, n_optim_nits=1, **kw)
+
+
+@pytest.mark.parametrize("route", [dict(), dict(chunk_steps=2)])
+def test_dispatch_lbfgs_matches_jax(route):
+    """``optimizer="lbfgs"`` through the dispatch, merged and chunked."""
+    x, y, v = _inputs(1)
+    want = jgp.fit_gp_batch_dispatch(*map(jnp.asarray, (x, y, v)), n_optim_nits=4,
+                                     optimizer="lbfgs", **route)
+    got = tgp.fit_gp_batch_dispatch(*_torch(x, y, v), n_optim_nits=4, optimizer="lbfgs", **route)
+    _assert_fit_close(got, want, rtol=STEP_TOL)
 
 
 @pytest.mark.parametrize(

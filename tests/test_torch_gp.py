@@ -123,15 +123,20 @@ def test_posterior_marginals_at_jax_fitted_params(kernel_name):
     assert tv.min().item() >= 1e-12
 
 
-def test_fit_unported_options_raise():
-    """The optax L-BFGS route stays unported (ROADMAP A6b); the dispatch's
-    own argument errors are those of the JAX package."""
-    x, y, v = (torch.from_numpy(a) for a in _inputs(1))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item A6b"):
-        tgp.fit_gp_batch(x, y, v, n_optim_nits=1, optimizer="lbfgs")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item A6b"):
-        tgp.fit_gp_batch_dispatch(x, y, v, n_optim_nits=1, time_stride=2, fine_steps=1,
-                                  optimizer="lbfgs")
+def test_fit_lbfgs_runs_and_options_raise():
+    """The optax L-BFGS route runs, merged and coarse-to-fine, as the JAX
+    package's (``tests/test_torch_lbfgs.py`` holds it step for step); the
+    dispatch's own argument errors are those of the JAX package."""
+    xa, ya, va = _inputs(1)
+    x, y, v = (torch.from_numpy(a) for a in (xa, ya, va))
+    got = tgp.fit_gp_batch(x, y, v, n_optim_nits=3, optimizer="lbfgs")
+    want = jgp.fit_gp_batch(*map(jnp.asarray, (xa, ya, va)), n_optim_nits=3, optimizer="lbfgs")
+    np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]), rtol=1e-9)
+    got = tgp.fit_gp_batch_dispatch(x, y, v, n_optim_nits=3, time_stride=2, fine_steps=2,
+                                    optimizer="lbfgs")
+    want = jgp.fit_gp_batch_dispatch(*map(jnp.asarray, (xa, ya, va)), n_optim_nits=3,
+                                     time_stride=2, fine_steps=2, optimizer="lbfgs")
+    np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]), rtol=1e-9)
     with pytest.raises(ValueError, match="unknown optimizer"):
         tgp.fit_gp_batch(x, y, v, n_optim_nits=1, optimizer="sgd")
     with pytest.raises(ValueError, match="time_stride"):

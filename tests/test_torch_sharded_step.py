@@ -34,6 +34,10 @@ MULTI = (("1d", "crps", "w2"), ("2d", "crps", "w2"), ("1d", "loglik", "mixture")
          ("2d", "similarity_single", "w2"))
 CASES = ([("raw", k) for k in RAW_KINDS] + [("annual",) + a for a in ANNUAL]
          + [("multi",) + c for c in MULTI])
+# optimizer="lbfgs": each rank's fit runs its own line search on its local
+# models' summed objective, as under JAX's shard_map; the fit adds no
+# collective.
+LBFGS_CASES = (("lbfgs-annual", "crps", "w2"), ("lbfgs-multi", "2d", "crps", "w2"))
 # The lowered counts of benchmarks/collective_audit.json.
 AUDIT = {("annual", "crps", "w2"): {"all_reduce": 3, "all_gather": 0},
          ("annual", "crps", "mixture"): {"all_reduce": 3, "all_gather": 0},
@@ -75,7 +79,15 @@ def _full(x):
     return (x.full_tensor() if isinstance(x, DTensor) else x).numpy()
 
 
+def _fit(case):
+    """The case's kind and fit keywords (``lbfgs-`` cases fit with lbfgs)."""
+    if case[0].startswith("lbfgs-"):
+        return (case[0][len("lbfgs-"):],) + case[1:], dict(FIT, optimizer="lbfgs")
+    return case, FIT
+
+
 def _port_sharded(case, meshes, inputs):
+    case, fit = _fit(case)
     kind = case[0]
     if kind == "raw":
         spec = ("model",)
@@ -84,12 +96,12 @@ def _port_sharded(case, meshes, inputs):
             meshes["1d"], (spec, spec, (), spec, spec, spec), (spec,))
         return fn(*inputs["raw"])
     if kind == "annual":
-        step = tstep.make_sharded_step(meshes["1d"], weight_kind=case[1], sigma_mode=case[2], **FIT)
+        step = tstep.make_sharded_step(meshes["1d"], weight_kind=case[1], sigma_mode=case[2], **fit)
         return step(*inputs["annual"])
     mesh = meshes[case[1]]
     step = tstep.make_sharded_multi_scenario_step(
         mesh, scenario_axis="scenario" if case[1] == "2d" else None, weight_kind=case[2],
-        sigma_mode=case[3], **FIT)
+        sigma_mode=case[3], **fit)
     return step(*inputs["multi"])
 
 
@@ -101,7 +113,7 @@ def _rank_worker(rank, world, inputs):
     meshes = {"1d": init_device_mesh("cpu", (world,), mesh_dim_names=("model",)),
               "2d": init_device_mesh("cpu", (2, world // 2), mesh_dim_names=("scenario", "model"))}
     out = {}
-    for case in CASES:
+    for case in CASES + list(LBFGS_CASES):
         reset_launch_counts()
         got = _port_sharded(case, meshes, inputs)
         counts = tmesh.collective_counts()
@@ -151,14 +163,15 @@ def _torch(arrays):
     return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
 
 
-def _port_unsharded(case, inputs):
+def _port_unsharded(case, inputs, **fit):
+    fit = dict(FIT, **fit)
     if case[0] == "raw":
         return (tstep.fused_raw_weights(case[1], *_torch(inputs["raw"])),)
     if case[0] == "annual":
         return tstep.ensemble_scenario_step(*_torch(inputs["annual"]), weight_kind=case[1],
-                                            sigma_mode=case[2], **FIT)
+                                            sigma_mode=case[2], **fit)
     return tstep.ensemble_multi_scenario_step(*_torch(inputs["multi"]), weight_kind=case[2],
-                                              sigma_mode=case[3], **FIT)
+                                              sigma_mode=case[3], **fit)
 
 
 def _jax_sharded(case, world, inputs):
@@ -169,6 +182,7 @@ def _jax_sharded(case, world, inputs):
 
     from bayesian_ensembling_tpu.parallel import step as jstep
 
+    case, fit = _fit(case)
     devices = np.array(jax.devices()[:world])
     mesh1d = Mesh(devices, ("model",))
     if case[0] == "raw":
@@ -177,15 +191,15 @@ def _jax_sharded(case, world, inputs):
                        mesh=mesh1d, in_specs=(p, p, P(), p, p, p), out_specs=p, check_vma=False)
         return (jax.jit(fn)(*(jnp.asarray(a) for a in inputs["raw"])),)
     if case[0] == "annual":
-        step = jstep.make_sharded_step(mesh1d, weight_kind=case[1], sigma_mode=case[2], **FIT)
+        step = jstep.make_sharded_step(mesh1d, weight_kind=case[1], sigma_mode=case[2], **fit)
         return step(*(jnp.asarray(a) for a in inputs["annual"]))
     if case[1] == "2d":
         step = jstep.make_sharded_multi_scenario_step(
             Mesh(devices.reshape(2, world // 2), ("scenario", "model")), scenario_axis="scenario",
-            weight_kind=case[2], sigma_mode=case[3], **FIT)
+            weight_kind=case[2], sigma_mode=case[3], **fit)
     else:
         step = jstep.make_sharded_multi_scenario_step(mesh1d, weight_kind=case[2],
-                                                      sigma_mode=case[3], **FIT)
+                                                      sigma_mode=case[3], **fit)
     return step(*(jnp.asarray(a) for a in inputs["multi"]))
 
 
@@ -201,6 +215,26 @@ def _close(got, want):
 @pytest.mark.parametrize("world", WORLDS)
 def test_sharded_matches_jax_sharded(sharded, inputs, world, case):
     _close(sharded[world][case]["values"], _jax_sharded(case, world, inputs))
+
+
+@pytest.mark.parametrize("case", LBFGS_CASES, ids="-".join)
+@pytest.mark.parametrize("world", WORLDS)
+def test_sharded_lbfgs_matches_jax_sharded(sharded, inputs, world, case):
+    """Per-shard line searches, as the JAX mesh program runs them (1e-8);
+    the fit issues no collective, so the step's counts are Adam's."""
+    _close(sharded[world][case]["values"], _jax_sharded(case, world, inputs))
+    assert sharded[world][case]["counts"] == {"all_reduce": 3, "all_gather": 0}
+
+
+@pytest.mark.parametrize("case", LBFGS_CASES, ids="-".join)
+def test_sharded_lbfgs_is_not_the_unsharded_fit(sharded, inputs, case):
+    """Each rank's step size serves only its local models, so the sharded
+    lbfgs step is not the unsharded one (whose one line search sees every
+    model); nothing all-reduces the objective."""
+    plain, _ = _fit(case)
+    want = _port_unsharded(plain, inputs, optimizer="lbfgs")
+    got = sharded[2][case]["values"]
+    assert max(np.max(np.abs(g - w.detach().numpy())) for g, w in zip(got, want)) > 1e-6
 
 
 @pytest.mark.parametrize("case", CASES, ids="-".join)

@@ -124,19 +124,16 @@ def test_pad_models_matches_jax():
         tstep.pad_models(hb[0], hm[0], 2)
 
 
-@pytest.mark.parametrize(
-    "option,item",
-    [
-        (dict(optimizer="lbfgs"), "A6b"),
-    ],
-)
-def test_unported_options_raise(option, item):
-    """What the port still lacks raises, naming its ROADMAP.md item."""
+@pytest.mark.parametrize("option", [dict(optimizer="lbfgs")])
+def test_once_unported_options_match_jax(option):
+    """What the port once lacked (``optimizer="lbfgs"``) runs as the JAX
+    package's does."""
     hb, hm, sb, sm, obs = scenario_blocks(7)
     mm = np.ones(hb.shape[:2])
     kw = dict(KW, **option)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md item {item}"):
-        tstep.ensemble_multi_scenario_step(*_torch(hb, hm, sb, sm, obs, mm), **kw)
+    want = jstep.ensemble_multi_scenario_step(*(jnp.asarray(a) for a in (hb, hm, sb, sm, obs, mm)), **kw)
+    got = tstep.ensemble_multi_scenario_step(*_torch(hb, hm, sb, sm, obs, mm), **kw)
+    _close(got, want)
 
 
 def test_emulate_marginals_return_flags():
@@ -153,8 +150,10 @@ def test_emulate_marginals_return_flags():
 
 
 def test_imports_without_jax():
-    """The whole port, every module of it, imports with JAX, flax and optax
-    blocked, and pulls in nothing of the JAX package."""
+    """The whole port, every module of it (the examples, the entry scripts,
+    the lbfgs optimiser, the native engine and the orbax backend among
+    them), imports with JAX, flax and optax blocked, runs nothing at
+    import, and pulls in nothing of the JAX package."""
     code = (
         "import sys, importlib, pkgutil\n"
         "for name in ('jax', 'flax', 'optax'):\n"
@@ -166,7 +165,10 @@ def test_imports_without_jax():
         " 'models.gp_dtw', 'models.mean_field', 'ops.distributions', 'ops.wasserstein',"
         " 'io.timeutils', 'utils.config', 'utils.profiles', 'models.gp_3d', 'ops.svgp',"
         " 'parallel.gridded', 'validation', 'utils.logging', 'utils.array_types',"
-        " 'utils.profiling'):\n"
+        " 'utils.profiling', 'ops.lbfgs', 'io.orbax_ckpt', 'native', 'examples.quickstart',"
+        " 'examples.monthly_warm', 'examples.gridded_quickstart', 'examples.gridded_refined',"
+        " 'cli.full_experiment', 'cli.pre_fit_models', 'cli.perfect_model_tests',"
+        " 'cli.create_gmst', 'cli.extract_single_location'):\n"
         "    assert bt.__name__ + '.' + name in sys.modules, name\n"
         "bad = [m for m in sys.modules if m == 'bayesian_ensembling_tpu'"
         " or m.startswith('bayesian_ensembling_tpu.')]\n"
