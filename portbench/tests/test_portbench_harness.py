@@ -1,0 +1,240 @@
+"""The benchmark's files, names, counts and imports; a card smoke of each cell.
+
+    python -m pytest portbench/tests -q            # here, on the CPU
+    python -m pytest portbench/tests -q -m gpu     # on the card: the smokes and the control
+"""
+
+from __future__ import annotations
+
+import ast
+import importlib
+import json
+import re
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+BENCH = Path(__file__).resolve().parent.parent
+ROOT = BENCH.parent
+sys.path.insert(0, str(ROOT))
+
+from portbench import run, work  # noqa: E402
+
+NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
+UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "bayesian_ensembling_tpu"}
+
+
+def bench():
+    return json.loads((ROOT / "BENCHMARK.json").read_text())
+
+
+def test_benchmark_json_has_the_contract_keys():
+    b = bench()
+    assert set(b) == {"command", "paths", "run_seconds", "configs", "workloads", "end_to_end",
+                      "per_layer"}
+    assert b["paths"] == ["portbench"] and b["command"] == ["python3", "portbench/run.py"]
+    assert 1 <= b["run_seconds"] <= 51
+    for c in b["configs"]:
+        assert set(c) == {"name", "source", "file", "reduced", "why"}
+    for w in b["workloads"]:
+        assert set(w) == {"name", "config", "traffic", "chips", "why"} and w["chips"] in (1, 4)
+        assert len(w["why"]) <= 200
+    for m in b["end_to_end"]:
+        assert set(m) - {"workloads"} == {"name", "unit", "better", "bound", "source"}
+        assert m["source"] in ("host_clock", "device_trace") and 0.01 <= m["bound"] <= 0.25
+    for m in b["per_layer"]:
+        assert set(m) - {"workloads"} == {"name", "unit", "better", "source", "layer", "moves"}
+        assert m["moves"] in {e["name"] for e in b["end_to_end"]}
+    assert "setup_s" in {m["name"] for m in b["end_to_end"]}
+
+
+def test_names_and_units_use_the_allowed_characters():
+    b = bench()
+    names = [x["name"] for key in ("configs", "workloads", "end_to_end", "per_layer")
+             for x in b[key]]
+    names += [w[k] for w in b["workloads"] for k in ("config", "traffic")]
+    names += [k for c in b["configs"] for k in c["reduced"]]
+    assert all(NAME.match(n) for n in names), names
+    for key in ("configs", "workloads", "end_to_end", "per_layer"):
+        assert len({x["name"] for x in b[key]}) == len(b[key])
+    assert all(UNIT.match(m["unit"]) for key in ("end_to_end", "per_layer") for m in b[key])
+    assert all(m["better"] in ("lower", "higher") for key in ("end_to_end", "per_layer")
+               for m in b[key])
+
+
+@pytest.mark.parametrize("workload", [w["name"] for w in bench()["workloads"]])
+def test_every_cell_loads_with_its_files(workload):
+    cell = run.Cell.named(workload)
+    b = bench()
+    config = next(c for c in b["configs"] if c["name"] == cell.config["name"])
+    assert (ROOT / config["file"]).is_file()
+    assert cell.config["reduced"] == config["reduced"]
+    assert (BENCH / "entries" / f"{cell.config['entry']}.py").is_file()
+    entry = importlib.import_module(f"portbench.entries.{cell.config['entry']}")
+    for check in cell.workload["checks"].values():
+        assert check["output"] in entry.OUTPUTS and check["statistic"] in run.STATISTICS
+        assert check["limit"] > 0.0
+    assert cell.profile["dba_iterations"] > 0 and cell.workload["pool"] >= 2
+    metrics = cell.end_to_end + cell.per_layer
+    assert {"setup_s", "step_s"} <= {m["name"] for m in cell.end_to_end}
+    assert cell.per_layer
+    for m in metrics:
+        assert (BENCH / "metrics" / f"{m['name']}.py").is_file()
+
+
+def test_a_ranked_row_statistic_reads_a_fault_confined_to_that_many_rows():
+    import numpy as np
+
+    diff = np.full((7, 10), 1e-6)
+    diff[3:] = 1.0  # 4 of 7 rows (scenarios) wrong
+    assert run.statistic({"statistic": "median", "row_rank": 4}, diff) == 1.0
+    assert run.statistic({"statistic": "median", "row_rank": 5}, diff) == 1e-6
+    assert run.statistic({"statistic": "max", "row_rank": 1}, diff) == 1.0
+    assert run.statistic({"statistic": "p25"}, diff) == 1e-6  # over all 70 gaps
+
+
+def test_every_metric_has_a_reader_and_every_reader_a_metric():
+    b = bench()
+    named = {m["name"] for key in ("end_to_end", "per_layer") for m in b[key]}
+    readers = {p.stem for p in (BENCH / "metrics").glob("*.py")}
+    assert named == readers
+    for name in named:
+        src = (BENCH / "metrics" / f"{name}.py").read_text()
+        assert "def read(ctx)" in src
+
+
+def test_a_metric_that_finds_nothing_is_left_out():
+    cell = run.Cell.named("gridded-5deg.fast")
+    ctx = run.Context(cell=cell, setup_s=1.0, step_s=0.5, peak_window_bytes=0)
+    assert run.read_metric("chol_solve_roofline", ctx) is None
+    assert run.read_metric("stage.fit_ms", ctx) is None
+    assert run.read_metric("device.idle_pct", ctx) is None
+    assert run.read_metric("step_mfu", ctx) > 0.0
+
+
+@pytest.mark.parametrize("b, t", [(112, 165), (41472, 86)])
+def test_kernel_work_matches_hand_counts(b, t):
+    nbytes, ops = work.chol_solve_work(b, t)
+    assert nbytes == b * 4 * (t * t + t + t * t + t + t + 1 + t)  # K, y in; L, z, alpha, logdet out
+    assert ops == pytest.approx(b * (t ** 3 / 3 + t * t + t * t))
+    nbytes, ops = work.tri_inv_work(b, t)
+    assert nbytes == b * 4 * (sum(range(1, t + 1)) + t * t)
+    assert ops == pytest.approx(b * t ** 3 / 3)
+    assert work.dba_update_work(b, t) == (b * 4 * t * 4, b * 5 * t * t)
+
+
+@pytest.mark.parametrize("b, t, d", [(112, 165, 29), (41472, 86, 29)])
+def test_step_operations_match_hand_counts(b, t, d):
+    t3, t2 = t ** 3 / 3, t * t
+    value = b * (6 * t2 + t3 + t2 + 3 * t)
+    grad = value + b * (2 * t3 + 12 * t2)
+    assert work.value_ops(b, t) == pytest.approx(value)
+    assert work.value_and_grad_ops(b, t) == pytest.approx(grad)
+    posterior = b * (6 * t2 + 2 * t3 + 3 * t3 + 6 * t2)
+    assert work.posterior_ops(b, t) == pytest.approx(posterior)
+    distances = b * (2 * t2 * d + 3 * t2)
+    adam = {"optimizer": "adam", "n_optim_nits": 7, "dba_iterations": 2}
+    bfgs = {"optimizer": "bfgs", "n_optim_nits": 7, "dba_iterations": 2}
+    dba = 2 * 5 * b * d * t2
+    assert work.emulation_ops(b, t, d, adam) == pytest.approx(
+        dba + b * 4 * t * d + distances + 7 * grad + posterior)
+    assert work.emulation_ops(b, t, d, bfgs) == pytest.approx(
+        dba + b * 4 * t * d + distances + 7 * (grad + value) + posterior)
+
+
+def test_kernel_least_seconds_at_the_gridded_step():
+    cell = run.Cell.named("gridded-5deg.fast")
+    b, t = 16 * 36 * 72, 86
+    chol = work.kernel_step_seconds("chol_solve", cell.config, cell.profile)
+    tri = work.kernel_step_seconds("tri_inv", cell.config, cell.profile)
+    assert chol == pytest.approx(61 * b * (2 * t * t + 4 * t + 1) * 4 / 3.35e12)
+    assert tri == pytest.approx(31 * b * (t * (t + 1) // 2 + t * t) * 4 / 3.35e12)
+    coarse = dict(cell.profile, time_stride=12, fine_steps=20)
+    assert work.kernel_step_seconds("chol_solve", cell.config, coarse) is None
+
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+        elif isinstance(node, ast.Call) and getattr(node.func, "attr", None) == "import_module":
+            if node.args and isinstance(node.args[0], ast.Constant):
+                yield node.args[0].value
+
+
+def test_nothing_imports_jax_or_the_jax_package():
+    """Top-level names compared whole: the port's name begins with the JAX
+    package's, so a prefix test would be wrong."""
+    for path in BENCH.rglob("*.py"):
+        for name in _imports(path):
+            assert name.split(".")[0] not in FORBIDDEN, f"{path}: imports {name}"
+
+
+def test_the_reference_imports_nothing_of_the_port():
+    for path in (BENCH / "reference").rglob("*.py"):
+        for name in _imports(path):
+            top = name.split(".")[0]
+            assert top not in FORBIDDEN | {"bayesian_ensembling_tpu_torch"}, f"{path}: {name}"
+            assert top in {"__future__", "math", "numpy", "torch", "portbench"}, f"{path}: {name}"
+            if top == "portbench":
+                assert name.startswith("portbench.reference"), f"{path}: {name}"
+
+
+def test_the_forbidden_modules_are_compared_by_whole_top_level_name(monkeypatch):
+    monkeypatch.setitem(sys.modules, "bayesian_ensembling_tpu_torchx", sys)
+    assert "bayesian_ensembling_tpu" not in run.loaded_forbidden()
+    monkeypatch.setitem(sys.modules, "jax.numpy", sys)
+    assert "jax" in run.loaded_forbidden()
+
+
+def _run(args, cwd, timeout=900):
+    return subprocess.run([sys.executable, "portbench/run.py", *args], cwd=cwd,
+                          capture_output=True, text=True, timeout=timeout)
+
+
+def test_a_run_without_a_card_prints_no_result():
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card")
+    proc = _run(["--workload", "gridded-5deg.fast", "--seed", "3", "--seconds", "1"], ROOT)
+    assert proc.returncode == 2 and proc.stdout.strip() == ""
+    assert "never falls back to the CPU" in proc.stderr
+
+
+def test_the_harness_alone_runs_nothing(tmp_path):
+    """A directory with BENCHMARK.json and the harness but not the program:
+    no result, a non-zero exit."""
+    shutil.copy(ROOT / "BENCHMARK.json", tmp_path)
+    shutil.copytree(BENCH, tmp_path / "portbench",
+                    ignore=shutil.ignore_patterns("__pycache__", "tests"))
+    proc = _run(["--workload", "gridded-5deg.fast", "--seed", "3", "--seconds", "1"], tmp_path)
+    assert proc.returncode != 0 and proc.stdout.strip() == ""
+
+
+@pytest.fixture
+def card():
+    import torch
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: a measured run never falls back to the CPU")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("workload", [w["name"] for w in bench()["workloads"]])
+def test_each_cell_runs_correct_on_the_card(card, workload):
+    proc = _run(["--workload", workload, "--seed", "2147483659", "--seconds", "1", "--trace", "0"],
+                ROOT)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    result = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert result["correct"] and result["failed"] == 0 and result["attempted"] >= 1
+    assert list(result)[-1] == "checks"
+    assert result["device"]["platform"] == "gpu" and result["device"]["count"] == 1
+    assert set(result["metrics"]) == {m["name"] for m in run.Cell.named(workload).end_to_end}
