@@ -198,6 +198,7 @@ __all__ = [
     "fit_gp_batch_chunked",
     "fit_gp_batch_dispatch",
     "fit_gp_batch_warm_time",
+    "fit_step_counts",
     "fused_raw_weights",
     "gp_params_from_jax",
     "gp_params_to_numpy",
@@ -241,9 +242,16 @@ def route_counts() -> dict[str, int]:
     return dict(_build.ROUTES)
 
 
+def fit_step_counts() -> dict[str, int]:
+    """Optimiser steps of the batched GP fit since the last reset, by
+    optimiser (each fit segment adds its step count once)."""
+    return dict(ops.gp.FIT_STEPS)
+
+
 def reset_launch_counts() -> None:
-    """Set every kernel's launch count, every route count and every
-    collective count (:func:`collective_counts`) to 0."""
-    for counter in (_build.LAUNCHES, _build.ROUTES, parallel.mesh.COLLECTIVES):
+    """Set every kernel's launch count, every route count, every collective
+    count (:func:`collective_counts`) and every optimiser-step count
+    (:func:`fit_step_counts`) to 0."""
+    for counter in (_build.LAUNCHES, _build.ROUTES, parallel.mesh.COLLECTIVES, ops.gp.FIT_STEPS):
         for name in counter:
             counter[name] = 0

@@ -35,6 +35,7 @@ from bayesian_ensembling_tpu_torch.ops import dtw as dtw_ops
 from bayesian_ensembling_tpu_torch.ops import lbfgs as lbfgs_ops
 from bayesian_ensembling_tpu_torch.ops import linalg_cuda
 from bayesian_ensembling_tpu_torch.ops.linalg_blocked import nlml_terms_blocked
+from bayesian_ensembling_tpu_torch.utils.profiling import span
 
 __all__ = [
     "BatchedGPParams",
@@ -61,6 +62,11 @@ __all__ = [
 
 _LOG_2PI = 1.8378770664093453
 _SQRT3 = 1.7320508075688772
+
+# Optimiser steps of the batched fit since the last reset (the package's
+# ``reset_launch_counts``), by optimiser: ``fit_gp_batch_segment`` adds each
+# segment's ``n_steps`` once, and nothing else adds to it.
+FIT_STEPS = {"adam": 0, "bfgs": 0, "lbfgs": 0}
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
@@ -253,22 +259,24 @@ def prepare_gp_inputs(
     reference flagship calls, with ``max_iter=dba_iterations`` epochs (the
     reference passes 50) and ``tol=dba_tol`` (1e-3 when omitted).
     """
-    if dba_method == "classic":
-        y_mean = dtw_ops.dba_batch(block, mask, n_iterations=dba_iterations, init="mean",
-                                   tol=dba_tol)
-    elif dba_method == "subgradient":
-        y_mean = dtw_ops.dba_subgradient_batch(
-            block, mask, max_iter=dba_iterations, tol=1e-3 if dba_tol is None else dba_tol
-        )
-    else:
-        raise ValueError(f"dba_method must be 'classic' or 'subgradient', got {dba_method!r}")
-    w = mask.to(block.dtype)
-    n = torch.clamp(torch.sum(w, dim=1), min=1.0)
-    mu_r = torch.einsum("mrt,mr->mt", block, w) / n[:, None]
-    dev = block - mu_r[:, None, :]
-    y_var = torch.einsum("mrt,mr->mt", dev * dev, w) / n[:, None]
-    y_var = torch.clamp(y_var, min=1e-8)
-    x = block.transpose(1, 2)
+    with span("dba", block, B=block.shape[0], T=block.shape[-1], method=dba_method,
+              iterations=dba_iterations):
+        if dba_method == "classic":
+            y_mean = dtw_ops.dba_batch(block, mask, n_iterations=dba_iterations, init="mean",
+                                       tol=dba_tol)
+        elif dba_method == "subgradient":
+            y_mean = dtw_ops.dba_subgradient_batch(
+                block, mask, max_iter=dba_iterations, tol=1e-3 if dba_tol is None else dba_tol
+            )
+        else:
+            raise ValueError(f"dba_method must be 'classic' or 'subgradient', got {dba_method!r}")
+        w = mask.to(block.dtype)
+        n = torch.clamp(torch.sum(w, dim=1), min=1.0)
+        mu_r = torch.einsum("mrt,mr->mt", block, w) / n[:, None]
+        dev = block - mu_r[:, None, :]
+        y_var = torch.einsum("mrt,mr->mt", dev * dev, w) / n[:, None]
+        y_var = torch.clamp(y_var, min=1e-8)
+        x = block.transpose(1, 2)
     return x, y_mean, y_var
 
 
@@ -521,8 +529,10 @@ def fit_gp_batch_segment(
     """
     step = _build_batch_step(x, y, noise_var, kernel_name, jitter, optimizer)
     losses = torch.empty((n_steps, x.shape[0]), dtype=y.dtype, device=y.device)
-    for it in range(n_steps):
-        losses[it] = step(params, opt_state)
+    with span("fit.loop", y, B=y.shape[0], T=y.shape[-1], optimizer=optimizer, steps=n_steps):
+        for it in range(n_steps):
+            losses[it] = step(params, opt_state)
+    FIT_STEPS[optimizer] += n_steps
     return params, opt_state, losses.T
 
 
@@ -678,28 +688,30 @@ def fit_gp_batch_dispatch(
     """
     if time_stride < 1:
         raise ValueError(f"time_stride must be >= 1, got {time_stride}")
-    kw = dict(kernel_name=kernel_name, learning_rate=learning_rate, jitter=jitter,
-              optimizer=optimizer, init=init)
-    if time_stride > 1:
-        if fine_steps is None:
-            raise ValueError(
-                "time_stride > 1 requires fine_steps (the number of "
-                "full-resolution warm-started optimisation steps)"
-            )
-        return fit_gp_batch_warm_time(
-            x, y, noise_var, time_stride=time_stride, coarse_steps=n_optim_nits,
-            fine_steps=fine_steps, chunk_steps=chunk_steps, **kw,
+    if time_stride > 1 and fine_steps is None:
+        raise ValueError(
+            "time_stride > 1 requires fine_steps (the number of "
+            "full-resolution warm-started optimisation steps)"
         )
-    if fine_steps is not None:
+    if time_stride == 1 and fine_steps is not None:
         raise ValueError(
             "fine_steps was given without time_stride > 1 — it only "
             "applies to the coarse-to-fine-in-time fit"
         )
-    if chunk_steps is not None:
-        return fit_gp_batch_chunked(
-            x, y, noise_var, n_optim_nits=n_optim_nits, chunk_steps=chunk_steps, **kw
-        )
-    return fit_gp_batch(x, y, noise_var, n_optim_nits=n_optim_nits, **kw)
+    kw = dict(kernel_name=kernel_name, learning_rate=learning_rate, jitter=jitter,
+              optimizer=optimizer, init=init)
+    with span("fit", y, B=y.shape[0], T=y.shape[-1], optimizer=optimizer,
+              steps=n_optim_nits + (fine_steps or 0)):
+        if time_stride > 1:
+            return fit_gp_batch_warm_time(
+                x, y, noise_var, time_stride=time_stride, coarse_steps=n_optim_nits,
+                fine_steps=fine_steps, chunk_steps=chunk_steps, **kw,
+            )
+        if chunk_steps is not None:
+            return fit_gp_batch_chunked(
+                x, y, noise_var, n_optim_nits=n_optim_nits, chunk_steps=chunk_steps, **kw
+            )
+        return fit_gp_batch(x, y, noise_var, n_optim_nits=n_optim_nits, **kw)
 
 
 @torch.no_grad()
@@ -718,7 +730,8 @@ def posterior_marginals_batch(
     blocked route), as the JAX posterior takes XLA's.  Both products run in
     full float32 on the card (the TPU used HIGHEST)."""
     precompute, apply_fn = get_kernel_precomputed(kernel_name)
-    return _marginals_from_gram(apply_fn(params, precompute(x, x)), y, noise_var, jitter)
+    with span("posterior", y, B=y.shape[0], T=y.shape[-1]):
+        return _marginals_from_gram(apply_fn(params, precompute(x, x)), y, noise_var, jitter)
 
 
 def _noisy_factor(k, y, noise_var, jitter):

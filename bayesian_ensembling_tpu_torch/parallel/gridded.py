@@ -53,6 +53,7 @@ from bayesian_ensembling_tpu_torch.parallel.step import (
     emulate_marginals,
     fused_raw_weights,
 )
+from bayesian_ensembling_tpu_torch.utils.profiling import span
 
 __all__ = [
     "pad_cells",
@@ -196,29 +197,32 @@ def gridded_tail(
     cells, as ``jax.vmap`` batches them.
     """
     _check_step_options(weight_kind, sigma_mode, model_axis)
-    cells = functools.partial(torch.func.vmap, out_dims=1)
-    if weight_kind == "loglik":
-        ll = cells(lambda mu, v, o: _loglik(mu, v, o, model_mask), in_dims=(1, 1, 0))(mean, var, obs)
-        raw = _shifted_exp(ll, 0, model_axis)  # (M, C, T)
-    elif weight_kind in _PAIRWISE:
-        std = torch.sqrt(var)
-        mean_all, std_all, mask_all = _gather_models(mean, std, model_mask, model_axis, 0)
-        raw = cells(lambda mu, sd, mu_all, sd_all: _similarity(weight_kind, mu, sd, mu_all, sd_all,
-                                                               mask_all),
-                    in_dims=(1, 1, 1, 1))(mean, std, mean_all, std_all)
-    else:
-        raw = cells(lambda mu, v, o, b, mk: fused_raw_weights(weight_kind, mu, v, o, b, mk,
-                                                              model_mask),
-                    in_dims=(1, 1, 0, 1, 1))(mean, var, obs, block, mask)
-    if model_mask is not None:
-        raw = raw * model_mask[:, None, None]
-    w = torch.mean(raw / psum(torch.sum(raw, dim=0), model_axis), dim=2)  # (M, C)
-    bary_mean = psum(torch.sum(w[:, :, None] * mean, dim=0), model_axis)
-    if sigma_mode == "mixture":
-        bary_std = torch.sqrt(psum(torch.sum(
-            w[:, :, None] * (var + torch.square(mean - bary_mean[None])), dim=0), model_axis))
-    else:
-        bary_std = psum(torch.sum(w[:, :, None] * torch.sqrt(var), dim=0), model_axis)
+    m, c, t = mean.shape
+    with span("tail", mean, B=m * c, T=t, weight_kind=weight_kind):
+        cells = functools.partial(torch.func.vmap, out_dims=1)
+        if weight_kind == "loglik":
+            ll = cells(lambda mu, v, o: _loglik(mu, v, o, model_mask),
+                       in_dims=(1, 1, 0))(mean, var, obs)
+            raw = _shifted_exp(ll, 0, model_axis)  # (M, C, T)
+        elif weight_kind in _PAIRWISE:
+            std = torch.sqrt(var)
+            mean_all, std_all, mask_all = _gather_models(mean, std, model_mask, model_axis, 0)
+            raw = cells(lambda mu, sd, mu_all, sd_all: _similarity(weight_kind, mu, sd, mu_all,
+                                                                   sd_all, mask_all),
+                        in_dims=(1, 1, 1, 1))(mean, std, mean_all, std_all)
+        else:
+            raw = cells(lambda mu, v, o, b, mk: fused_raw_weights(weight_kind, mu, v, o, b, mk,
+                                                                  model_mask),
+                        in_dims=(1, 1, 0, 1, 1))(mean, var, obs, block, mask)
+        if model_mask is not None:
+            raw = raw * model_mask[:, None, None]
+        w = torch.mean(raw / psum(torch.sum(raw, dim=0), model_axis), dim=2)  # (M, C)
+        bary_mean = psum(torch.sum(w[:, :, None] * mean, dim=0), model_axis)
+        if sigma_mode == "mixture":
+            bary_std = torch.sqrt(psum(torch.sum(
+                w[:, :, None] * (var + torch.square(mean - bary_mean[None])), dim=0), model_axis))
+        else:
+            bary_std = psum(torch.sum(w[:, :, None] * torch.sqrt(var), dim=0), model_axis)
     return bary_mean, bary_std, w
 
 
@@ -255,11 +259,12 @@ def gridded_ensemble_step(
         gp_init = _reshape_params(gp_init, m * c)
     if return_fit:
         emulate_kwargs = dict(emulate_kwargs, return_params=True, return_targets=True)
-    em = emulate_marginals(block.reshape(m * c, r, t), mask.reshape(m * c, r), gp_init=gp_init,
-                           **emulate_kwargs)
-    mean, var = em[0].reshape(m, c, t), em[1].reshape(m, c, t)
-    out = gridded_tail(mean, var, obs, block, mask, model_mask, weight_kind=weight_kind,
-                       sigma_mode=sigma_mode, model_axis=model_axis)
+    with span("step", block, B=m * c, T=t):
+        em = emulate_marginals(block.reshape(m * c, r, t), mask.reshape(m * c, r),
+                               gp_init=gp_init, **emulate_kwargs)
+        mean, var = em[0].reshape(m, c, t), em[1].reshape(m, c, t)
+        out = gridded_tail(mean, var, obs, block, mask, model_mask, weight_kind=weight_kind,
+                           sigma_mode=sigma_mode, model_axis=model_axis)
     if return_fit:
         params, y_mean, y_var = em[2:]
         return out + (_reshape_params(params, m, c), y_mean.reshape(m, c, t),

@@ -29,6 +29,7 @@ from bayesian_ensembling_tpu_torch._errors import resolve_device
 from bayesian_ensembling_tpu_torch.ops import gp as gp_ops
 from bayesian_ensembling_tpu_torch.ops import scoring
 from bayesian_ensembling_tpu_torch.parallel.mesh import all_gather, axis_group, pmax, psum, shard_map
+from bayesian_ensembling_tpu_torch.utils.profiling import span
 
 __all__ = [
     "WEIGHT_KINDS",
@@ -323,12 +324,14 @@ def multi_scenario_tail(
     kinds, whatever the number of scenarios.
     """
     _check_step_options(weight_kind, sigma_mode, model_axis)
-    raw = _stacked_raw_weights(weight_kind, hist_mean, hist_var, obs, hist_blocks, hist_masks,
-                               model_masks, model_axis)
-    raw = raw * model_masks[:, :, None]
-    total = psum(torch.sum(raw, dim=1, keepdim=True), model_axis)
-    weights = torch.mean(raw / total, dim=2)
-    bary_mean, bary_std = _barycentre(weights, ssp_mean, ssp_var, sigma_mode, model_axis)
+    s, m, t_ssp = ssp_mean.shape
+    with span("tail", ssp_mean, B=s * m, T=t_ssp, weight_kind=weight_kind):
+        raw = _stacked_raw_weights(weight_kind, hist_mean, hist_var, obs, hist_blocks, hist_masks,
+                                   model_masks, model_axis)
+        raw = raw * model_masks[:, :, None]
+        total = psum(torch.sum(raw, dim=1, keepdim=True), model_axis)
+        weights = torch.mean(raw / total, dim=2)
+        bary_mean, bary_std = _barycentre(weights, ssp_mean, ssp_var, sigma_mode, model_axis)
     return bary_mean, bary_std, weights
 
 
@@ -364,15 +367,18 @@ def ensemble_scenario_step(
         dba_iterations=dba_iterations, dba_method=dba_method, dba_tol=dba_tol,
         optimizer=optimizer, time_stride=time_stride, fine_steps=fine_steps,
     )
-    hist_mean, hist_var = emulate_marginals(hist_block, hist_mask, **em)
-    ssp_mean, ssp_var = emulate_marginals(ssp_block, ssp_mask, **em)
-    raw = fused_raw_weights(weight_kind, hist_mean, hist_var, obs, hist_block, hist_mask,
-                            model_mask, model_axis=model_axis)
-    if model_mask is not None:
-        raw = raw * model_mask[:, None]
-    total = psum(torch.sum(raw, dim=0, keepdim=True), model_axis)
-    weights = torch.mean(raw / total, dim=1)
-    bary_mean, bary_std = _barycentre(weights, ssp_mean, ssp_var, sigma_mode, model_axis)
+    m, t_ssp = ssp_block.shape[0], ssp_block.shape[-1]
+    with span("step", hist_block, B=m, T=hist_block.shape[-1], T_ssp=t_ssp):
+        hist_mean, hist_var = emulate_marginals(hist_block, hist_mask, **em)
+        ssp_mean, ssp_var = emulate_marginals(ssp_block, ssp_mask, **em)
+        with span("tail", ssp_mean, B=m, T=t_ssp, weight_kind=weight_kind):
+            raw = fused_raw_weights(weight_kind, hist_mean, hist_var, obs, hist_block, hist_mask,
+                                    model_mask, model_axis=model_axis)
+            if model_mask is not None:
+                raw = raw * model_mask[:, None]
+            total = psum(torch.sum(raw, dim=0, keepdim=True), model_axis)
+            weights = torch.mean(raw / total, dim=1)
+            bary_mean, bary_std = _barycentre(weights, ssp_mean, ssp_var, sigma_mode, model_axis)
     return bary_mean, bary_std, weights
 
 
@@ -410,25 +416,26 @@ def ensemble_multi_scenario_step(
         dba_iterations=dba_iterations, dba_method=dba_method, dba_tol=dba_tol,
         optimizer=optimizer, time_stride=time_stride, fine_steps=fine_steps,
     )
-    hist_mean, hist_var = emulate_marginals(
-        hist_blocks.reshape(s * m, r, t_hist), hist_masks.reshape(s * m, r), **em
-    )
-    ssp_mean, ssp_var = emulate_marginals(
-        ssp_blocks.reshape(s * m, r, t_ssp), ssp_masks.reshape(s * m, r), **em
-    )
-    return multi_scenario_tail(
-        hist_mean.reshape(s, m, t_hist),
-        hist_var.reshape(s, m, t_hist),
-        ssp_mean.reshape(s, m, t_ssp),
-        ssp_var.reshape(s, m, t_ssp),
-        obs,
-        hist_blocks,
-        hist_masks,
-        model_masks,
-        weight_kind=weight_kind,
-        model_axis=model_axis,
-        sigma_mode=sigma_mode,
-    )
+    with span("step", hist_blocks, B=s * m, T=t_hist, T_ssp=t_ssp):
+        hist_mean, hist_var = emulate_marginals(
+            hist_blocks.reshape(s * m, r, t_hist), hist_masks.reshape(s * m, r), **em
+        )
+        ssp_mean, ssp_var = emulate_marginals(
+            ssp_blocks.reshape(s * m, r, t_ssp), ssp_masks.reshape(s * m, r), **em
+        )
+        return multi_scenario_tail(
+            hist_mean.reshape(s, m, t_hist),
+            hist_var.reshape(s, m, t_hist),
+            ssp_mean.reshape(s, m, t_ssp),
+            ssp_var.reshape(s, m, t_ssp),
+            obs,
+            hist_blocks,
+            hist_masks,
+            model_masks,
+            weight_kind=weight_kind,
+            model_axis=model_axis,
+            sigma_mode=sigma_mode,
+        )
 
 
 def make_sharded_multi_scenario_step(

@@ -1,16 +1,15 @@
 """Structured logging seam.
 
-Copy of ``bayesian_ensembling_tpu/utils/logging.py`` (pure Python): one
-configurable logger for the package plus a one-line metrics helper.
+From ``bayesian_ensembling_tpu/utils/logging.py`` (pure Python): one
+configurable logger for the package.
 """
 
 from __future__ import annotations
 
 import logging
 import sys
-import typing as tp
 
-__all__ = ["get_logger", "log_metrics"]
+__all__ = ["get_logger"]
 
 _FORMAT = "%(asctime)s %(name)s %(levelname)s %(message)s"
 
@@ -26,8 +25,3 @@ def get_logger(name: str = "bayesian_ensembling_tpu_torch",
         logger.propagate = False
     return logger
 
-
-def log_metrics(metrics: tp.Mapping[str, float], prefix: str = "", logger=None) -> None:
-    logger = logger or get_logger()
-    body = " ".join(f"{k}={v:.6g}" for k, v in metrics.items())
-    logger.info("%s%s", f"{prefix} " if prefix else "", body)

@@ -1,0 +1,11 @@
+"""span.dba_ms: milliseconds the card's stream took over the DBA targets
+(``ops/gp.prepare_gp_inputs``) in one step run with the port's tracer on:
+the ``dba`` spans' CUDA-event times, summed over the step's collections
+(``portbench/program_spans.py``). Nothing to read where the program has no
+tracer or the traced step's answers differ from the untraced step's."""
+
+from portbench import program_spans
+
+
+def read(ctx):
+    return program_spans.span_ms(ctx, "dba")
