@@ -198,6 +198,7 @@ __all__ = [
     "fit_gp_batch_chunked",
     "fit_gp_batch_dispatch",
     "fit_gp_batch_warm_time",
+    "fit_replay_counts",
     "fit_step_counts",
     "fused_raw_weights",
     "gp_params_from_jax",
@@ -248,10 +249,19 @@ def fit_step_counts() -> dict[str, int]:
     return dict(ops.gp.FIT_STEPS)
 
 
+def fit_replay_counts() -> dict[str, int]:
+    """Of those steps, the ones that ran as replays of a captured CUDA
+    graph, by optimiser (Adam on a card, past each segment's first
+    ``ops.gp.GRAPH_WARMUP_STEPS``)."""
+    return dict(ops.gp.FIT_REPLAYS)
+
+
 def reset_launch_counts() -> None:
     """Set every kernel's launch count, every route count, every collective
-    count (:func:`collective_counts`) and every optimiser-step count
-    (:func:`fit_step_counts`) to 0."""
-    for counter in (_build.LAUNCHES, _build.ROUTES, parallel.mesh.COLLECTIVES, ops.gp.FIT_STEPS):
+    count (:func:`collective_counts`), every optimiser-step count
+    (:func:`fit_step_counts`) and every replay count
+    (:func:`fit_replay_counts`) to 0."""
+    for counter in (_build.LAUNCHES, _build.ROUTES, parallel.mesh.COLLECTIVES, ops.gp.FIT_STEPS,
+                    ops.gp.FIT_REPLAYS):
         for name in counter:
             counter[name] = 0

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import functools
 import math
+import threading
 import types
 import typing as tp
 import warnings
@@ -31,6 +32,7 @@ import warnings
 import torch
 from torch import nn
 
+from bayesian_ensembling_tpu_torch import _build
 from bayesian_ensembling_tpu_torch.ops import dtw as dtw_ops
 from bayesian_ensembling_tpu_torch.ops import lbfgs as lbfgs_ops
 from bayesian_ensembling_tpu_torch.ops import linalg_cuda
@@ -67,6 +69,25 @@ _SQRT3 = 1.7320508075688772
 # ``reset_launch_counts``), by optimiser: ``fit_gp_batch_segment`` adds each
 # segment's ``n_steps`` once, and nothing else adds to it.
 FIT_STEPS = {"adam": 0, "bfgs": 0, "lbfgs": 0}
+# Of those, the steps that ran as replays of a captured CUDA graph (the
+# package's ``fit_replay_counts``): ``fit_gp_batch_segment``'s Adam loop on a
+# card adds each segment's replays once.
+FIT_REPLAYS = {"adam": 0}
+
+# Eager Adam steps that open a segment on a card, on the stream its capture
+# then uses: they set up that stream's cuBLAS workspace and the autograd
+# engine's device thread before the capture.  A segment of no more steps
+# runs eagerly throughout.
+GRAPH_WARMUP_STEPS = 3
+# Per card: the stream of a segment's eager steps and capture, and the last
+# segment's graph.  Each capture shares that graph's memory pool, so every
+# segment reuses one step's intermediates; the old graph is freed once the
+# new capture holds the pool (PyTorch cannot hand a pool that no live graph
+# holds to a new capture).  One graphed segment runs at a time, so two
+# threads never share a capture stream.
+_capture_resources: tp.Dict[torch.device,
+                         tp.Tuple["torch.cuda.Stream", "torch.cuda.CUDAGraph"]] = {}
+_capture_lock = threading.Lock()
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
@@ -386,6 +407,7 @@ def _build_batch_step(x, y, noise_var, kernel_name, jitter, optimizer):
             opt.step([params.raw_lengthscale, params.raw_variance], grads)
             return per_model
 
+        step.value_and_grad = value_and_grad  # what _adam_graphed captures
         return step
 
     if optimizer == "lbfgs":
@@ -508,6 +530,77 @@ def _warn_non_finite(losses: torch.Tensor, t: int, optimizer: str) -> None:
         )
 
 
+def _free_cublas_workspaces() -> None:
+    """Hand the cuBLAS workspaces back to PyTorch's caching allocator.
+
+    PyTorch holds one workspace (32 MiB on an H100) per (cuBLAS handle,
+    stream), allocated at the first GEMM on a stream and kept.  A graphed
+    segment frees the caller's stream's before its capture stream takes
+    one, and that one when it ends, so the two are never held at once."""
+    torch._C._cuda_clearCublasWorkspaces()
+
+
+def _adam_graphed(step, params: BatchedGPParams, opt: _Adam, losses: torch.Tensor) -> None:
+    """``losses.shape[0]`` Adam steps of ``step`` on the card, the NLML of
+    step k into row k of ``losses``: :data:`GRAPH_WARMUP_STEPS` eager steps
+    on the capture stream, then the step captured once as a CUDA graph and
+    replayed, on the caller's stream, for each of the rest.
+
+    The graph is ``step`` with ``_Adam.step``'s update written out in its
+    order of operations, except for the bias corrections: the eager step
+    divides by Python floats, which CUDA does as a product with their
+    reciprocal, taken in float64 and rounded to the tensors' dtype, so the
+    graph multiplies by the same reciprocals, read from a table at a step
+    counter on the card, which also picks the row of ``losses``.  The
+    kernel launch and route counters gain the captured step's counts once
+    a replay."""
+    n, device = losses.shape[0], losses.device
+    side, last = _capture_resources.get(device) or (torch.cuda.Stream(device), None)
+    main = torch.cuda.current_stream(device)
+    inv = torch.tensor([[1.0 / (1.0 - opt.b1 ** k), 1.0 / (1.0 - opt.b2 ** k)]
+                        for k in range(opt.count + 1, opt.count + n + 1)], dtype=torch.float64)
+    inv = inv.to(losses.dtype).pin_memory().to(device, non_blocking=True)
+    it = torch.full((1,), GRAPH_WARMUP_STEPS, dtype=torch.int64, device=device)
+    leaves = [params.raw_lengthscale, params.raw_variance]
+    counters = (_build.LAUNCHES, _build.ROUTES)
+    _free_cublas_workspaces()
+    side.wait_stream(main)
+    with torch.cuda.stream(side):
+        for k in range(GRAPH_WARMUP_STEPS):
+            losses[k] = step(params, opt)
+        before = [dict(c) for c in counters]
+        graph = torch.cuda.CUDAGraph()
+        graph.capture_begin(pool=None if last is None else last.pool())
+        try:
+            per_model, grads = step.value_and_grad(params)
+            with torch.no_grad():
+                inv_c1, inv_c2 = inv.index_select(0, it).unbind(1)
+                for p, g, mu, nu in zip(leaves, grads, opt.mu, opt.nu):
+                    mu.copy_((1.0 - opt.b1) * g + opt.b1 * mu)
+                    nu.copy_((1.0 - opt.b2) * (g * g) + opt.b2 * nu)
+                    upd = (mu * inv_c1) / (torch.sqrt(nu * inv_c2) + opt.eps)
+                    p.add_(upd * -opt.lr)
+                losses.index_copy_(0, it, per_model[None])
+                it.add_(1)
+        finally:  # a failed capture must not leave the stream capturing
+            graph.capture_end()
+    if last is not None:
+        last.reset()
+    _capture_resources[device] = (side, graph)
+    replays = n - GRAPH_WARMUP_STEPS
+    main.wait_stream(side)
+    for _ in range(replays):
+        graph.replay()
+    for counter, was in zip(counters, before):
+        for name in counter:  # the capture counted one step's launches
+            counter[name] += (counter[name] - was[name]) * (replays - 1)
+    opt.count += replays
+    # The capture stream's cached blocks and workspace, and the pool's blocks,
+    # go to later work, which must follow the replays.
+    side.wait_stream(main)
+    _free_cublas_workspaces()
+
+
 def fit_gp_batch_segment(
     x: torch.Tensor,
     y: torch.Tensor,
@@ -525,14 +618,27 @@ def fit_gp_batch_segment(
     ``_make_batch_opt``, which holds the learning rate) are updated in
     place.
 
+    Adam on a card runs the segment past its first
+    :data:`GRAPH_WARMUP_STEPS` steps as replays of one CUDA graph of the
+    step (``_adam_graphed``), bit for bit the eager loop; on the CPU, and
+    for the other optimisers, each step is a Python call.
+
     Returns ``(params, opt_state, losses (M, n_steps))``.
     """
     step = _build_batch_step(x, y, noise_var, kernel_name, jitter, optimizer)
     losses = torch.empty((n_steps, x.shape[0]), dtype=y.dtype, device=y.device)
-    with span("fit.loop", y, B=y.shape[0], T=y.shape[-1], optimizer=optimizer, steps=n_steps):
-        for it in range(n_steps):
-            losses[it] = step(params, opt_state)
+    graphed = optimizer == "adam" and y.is_cuda and n_steps > GRAPH_WARMUP_STEPS
+    replays = n_steps - GRAPH_WARMUP_STEPS if graphed else 0
+    with span("fit.loop", y, B=y.shape[0], T=y.shape[-1], optimizer=optimizer, steps=n_steps,
+              replays=replays):
+        if graphed:
+            with _capture_lock:
+                _adam_graphed(step, params, opt_state, losses)
+        else:
+            for it in range(n_steps):
+                losses[it] = step(params, opt_state)
     FIT_STEPS[optimizer] += n_steps
+    FIT_REPLAYS["adam"] += replays
     return params, opt_state, losses.T
 
 

@@ -47,8 +47,9 @@ def _pad_to_block(a: torch.Tensor, nb: int) -> tp.Tuple[torch.Tensor, int]:
     if tp_ == t:
         return a, t
     out = torch.nn.functional.pad(a, (0, tp_ - t, 0, tp_ - t))
-    tail = torch.arange(t, tp_, device=a.device)
-    out[:, tail, tail] = 1.0
+    # A fill of the diagonal's view: no host value is copied to the device,
+    # so the fit's step can be captured as a CUDA graph.
+    out.diagonal(dim1=-2, dim2=-1)[:, t:].fill_(1.0)
     return out, t
 
 
