@@ -2,9 +2,20 @@
 
 A configuration names its entry (``"entry"``); the module of that name here
 turns the cell's inputs into the entry's tensors, calls the entry for one
-step, calls the same work stage by stage under the benchmark's spans, and
-calls the plain reference for the same step's answers.  Each module
-exposes ``OUTPUTS``, ``tensors``, ``step``, ``staged`` and ``reference``.
+step, calls the plain reference for the same step's answers, and counts the
+batches a step emulates.  Each module exposes:
+
+* ``OUTPUTS``: the names of the step's answers, in the entry's order;
+* ``tensors(inputs, dtype, device)``: the entry's positional tensors;
+* ``step(bt, t, config, profile)``: one step of the port's entry;
+* ``reference(inputs, config, profile, device, dtype)``: the plain
+  reference's answers of the same step, from a module under
+  ``portbench/reference``;
+* ``collections(config)``: the batches one step emulates, as ``(b, t, d)``
+  triples (models, time steps, realisations), from which
+  ``portbench/work.py`` counts the step's operations;
+* ``TINY``: shape keys that cut the configuration to a size the CPU tests
+  run (``portbench/tests``).
 """
 
 from __future__ import annotations

@@ -7,6 +7,7 @@ from portbench.entries import as_tensors, fit_kwargs
 
 OUTPUTS = ("bary_mean", "bary_std", "weights")
 _INPUTS = ("block", "obs", "mask")
+TINY = dict(models=3, lat=2, lon=2, realisations=4, t=11, obs_members=5)
 
 
 def tensors(inputs, dtype, device):
@@ -21,29 +22,10 @@ def step(bt, t, config, profile):
         dba_iterations=profile["dba_iterations"], **fit_kwargs(profile))
 
 
-def staged(bt, t, config, profile, span):
-    """The step's work as the entry does it, one stage at a time under
-    ``span(stage)``: the DBA targets, the fit and the posterior of every
-    (model, cell) pair, then the tail."""
-    from bayesian_ensembling_tpu_torch.ops import gp as gp_ops
-    from bayesian_ensembling_tpu_torch.parallel import gridded as gridded_ops
-
-    block, obs, mask = t
-    m, c, r, tt = block.shape
-    kernel, jitter = config["kernel"], config["jitter"]
-    with span("dba"):
-        x, y, noise = gp_ops.prepare_gp_inputs(block.reshape(m * c, r, tt), mask.reshape(m * c, r),
-                                               dba_iterations=profile["dba_iterations"])
-    with span("fit"):
-        params, _ = gp_ops.fit_gp_batch_dispatch(x, y, noise, kernel_name=kernel, jitter=jitter,
-                                                 **fit_kwargs(profile))
-    with span("posterior"):
-        mean, var = gp_ops.posterior_marginals_batch(params, x, y, noise, kernel_name=kernel,
-                                                     jitter=jitter)
-    with span("tail"):
-        return gridded_ops.gridded_tail(mean.reshape(m, c, tt), (var + noise).reshape(m, c, tt),
-                                        obs, block, mask, None, weight_kind=config["weight_kind"],
-                                        sigma_mode=config["sigma_mode"])
+def collections(config):
+    """One batch: every (model, cell) pair."""
+    s = config["shape"]
+    return [(s["models"] * s["lat"] * s["lon"], s["t"], s["realisations"])]
 
 
 def reference(inputs, config, profile, device, dtype):

@@ -8,6 +8,8 @@ from portbench.entries import as_tensors, fit_kwargs
 
 OUTPUTS = ("bary_mean", "bary_std", "weights")
 _INPUTS = ("hist_blocks", "hist_masks", "ssp_blocks", "ssp_masks", "obs", "model_masks")
+TINY = dict(scenarios=2, models=3, min_real_models=2, realisations=5, t_hist=14, t_ssp=9,
+            obs_members=6)
 
 
 def tensors(inputs, dtype, device):
@@ -29,34 +31,12 @@ def step(bt, t, config, profile):
         **fit_kwargs(profile))
 
 
-def staged(bt, t, config, profile, span):
-    """The step's work as the entry does it, one stage at a time under
-    ``span(stage)``: for each collection the DBA targets, the fit and the
-    posterior, then the tail."""
-    from bayesian_ensembling_tpu_torch.ops import gp as gp_ops
-    from bayesian_ensembling_tpu_torch.parallel import step as step_ops
-
-    hb, hm, sb, sm, obs, mm = t
-    s, m, r, _ = hb.shape
-    kernel, jitter = config["kernel"], config["jitter"]
-    marginals = []
-    for block, mask in ((hb, hm), (sb, sm)):
-        tt = block.shape[-1]
-        with span("dba"):
-            x, y, noise = gp_ops.prepare_gp_inputs(block.reshape(s * m, r, tt), mask.reshape(s * m, r),
-                                                   dba_iterations=profile["dba_iterations"])
-        with span("fit"):
-            params, _ = gp_ops.fit_gp_batch_dispatch(x, y, noise, kernel_name=kernel, jitter=jitter,
-                                                     **fit_kwargs(profile))
-        with span("posterior"):
-            mean, var = gp_ops.posterior_marginals_batch(params, x, y, noise, kernel_name=kernel,
-                                                         jitter=jitter)
-        marginals.append((mean.reshape(s, m, tt), (var + noise).reshape(s, m, tt)))
-    (h_mean, h_var), (s_mean, s_var) = marginals
-    with span("tail"):
-        return step_ops.multi_scenario_tail(h_mean, h_var, s_mean, s_var, obs, hb, hm, mm,
-                                            weight_kind=config["weight_kind"],
-                                            sigma_mode=config["sigma_mode"])
+def collections(config):
+    """Two batches, every scenario's models at once: the historical
+    collections, then the SSP ones."""
+    s = config["shape"]
+    b = s["scenarios"] * s["models"]
+    return [(b, s["t_hist"], s["realisations"]), (b, s["t_ssp"], s["realisations"])]
 
 
 def reference(inputs, config, profile, device, dtype):

@@ -1,14 +1,10 @@
 """The port's own spans and counters, for the per-layer metrics that read them.
 
-``run.py --trace 1`` times the stages from outside (the staged re-run) and
-profiles one step with the port's tracer off.  The readers of
-``span.{dba,fit,posterior,tail}_ms``, ``fit.launches_per_iter`` and
-``fit.idle_pct`` call :func:`gather`, which, once a traced run, after
-everything else, runs three more steps of one input set and sets three
-fields on the context:
+``run.py --trace 1`` profiles one step of the sampled pool entry with the
+port's tracer off, then calls :func:`traced_steps`, which runs two more
+steps of the same entry's tensors, before the reference and while the
+allocator is still warm, and sets three fields on the context:
 
-0. a step untraced: the answers the traced steps must equal bit for bit
-   (it also refills the allocator, emptied for the reference);
 (a) a step with the port's tracer on (``utils.profiling.recording``) and no
     profiler: ``ctx.program_spans``, its span records, each timed by two
     CUDA events on the stream its work went to;
@@ -18,15 +14,13 @@ fields on the context:
     ``bet.<name>`` range, and ``ctx.fit_steps``, the port's optimiser steps
     by optimiser (``fit_step_counts``).
 
-A step whose answers differ leaves its fields None, and the log says so.  A
-program without the tracer (or the counter) leaves them None, and every
-reader then finds nothing.  The log also gives the tracer's cost (step (a)
-against the window's ``step_s``, step (b) against the profiled step), the
-card's idle time inside each span's own interval in step (b), and its ten
+Each step's answers are held bit for bit to the window's answers of the same
+entry; a step whose answers differ leaves its fields None, and the log says
+so.  A program without the tracer (or the counter) leaves them None, and
+every reader then finds nothing.  The log also gives the tracer's cost (step
+(a) against the window's ``step_s``, step (b) against the profiled step),
+the card's idle time inside each span's own interval in step (b), and its ten
 longest idle gaps named by the innermost span under way.
-
-The input set is draw 0 of ``SEED``: the readers do not see the run's seed,
-and the work of a step does not depend on it (``traffic/generate.py``).
 """
 
 from __future__ import annotations
@@ -41,7 +35,6 @@ import numpy as np
 
 from portbench import trace as trace_mod
 
-SEED = 2 ** 31 + 17
 FIT_LOOP = "bet.fit.loop"
 # The host calls that launch work on the card: kernel launches through the
 # ``cuda*`` and the ``cu*`` APIs, and a CUDA graph's replay (one call a replay).
@@ -173,15 +166,6 @@ def named_gaps(trace, n: int = 10):
     return out
 
 
-def _load_tracer():
-    """The port's ``recording`` and ``fit_step_counts``, or None each where
-    the program has none."""
-    import bayesian_ensembling_tpu_torch as bt
-
-    profiling = importlib.import_module("bayesian_ensembling_tpu_torch.utils.profiling")
-    return bt, getattr(profiling, "recording", None), getattr(bt, "fit_step_counts", None)
-
-
 def _host(outputs):
     return tuple(a.detach().cpu().numpy() for a in outputs)
 
@@ -190,42 +174,37 @@ def _same(a, b) -> bool:
     return all(np.array_equal(x, y) for x, y in zip(a, b))
 
 
-def _steps(ctx):
-    """Steps 0, (a) and (b) of the module docstring: (spans, trace, steps)."""
-    import torch
+def traced_steps(ctx, bt, entry, t, answers, device):
+    """Steps (a) and (b) of the module docstring on the entry's tensors
+    ``t``, whose answers in the window were ``answers``: sets
+    ``ctx.program_spans``, ``ctx.program_trace`` and ``ctx.fit_steps``."""
     from torch.profiler import ProfilerActivity, profile
 
-    from portbench.traffic import generate
-
-    bt, recording, fit_step_counts = _load_tracer()
+    profiling = importlib.import_module("bayesian_ensembling_tpu_torch.utils.profiling")
+    recording = getattr(profiling, "recording", None)
+    fit_step_counts = getattr(bt, "fit_step_counts", None)
+    ctx.program_spans = ctx.program_trace = ctx.fit_steps = None
     if recording is None:
         log("[spans] the program has no span tracer: the span metrics are left out")
-        return None, None, None
-    cell = ctx.cell
-    config, profile_ = cell.config, cell.profile
-    entry = importlib.import_module(f"portbench.entries.{config['entry']}")
-    device = torch.device("cuda" if ctx.trace.device else "cpu")
-    t = entry.tensors(generate.pool(config, SEED, 1)[0], getattr(torch, config["dtype"]), device)
-    t0 = time.perf_counter()
-    answers = _host(entry.step(bt, t, config, profile_))
-    wall_0 = time.perf_counter() - t0
+        return
+    config, profile_ = ctx.cell.config, ctx.cell.profile
 
     with recording() as rec_a:
         t0 = time.perf_counter()
         out_a = _host(entry.step(bt, t, config, profile_))
         wall_a = time.perf_counter() - t0
-    spans = rec_a.spans if _same(out_a, answers) else None
+    same_a = _same(out_a, answers)
     by_name: tp.Dict[str, float] = {}
     for s in rec_a.spans:
         if s.device_ms is not None:
             by_name[s.name] = by_name.get(s.name, 0.0) + s.device_ms
     log(f"[spans] (a) tracer on: {wall_a:.6f} s against the window's step_s {ctx.step_s:.6f} s "
-        f"({100.0 * (wall_a / ctx.step_s - 1.0):+.2f}%) and the untraced step just before it, "
-        f"{wall_0:.6f} s ({100.0 * (wall_a / wall_0 - 1.0):+.2f}%); {len(rec_a.spans)} spans; "
-        "device ms "
+        f"({100.0 * (wall_a / ctx.step_s - 1.0):+.2f}%); {len(rec_a.spans)} spans; device ms "
         + (", ".join(f"{k} {v:.4f}" for k, v in by_name.items()) or "not measured (no card)")
-        + ("; its answers equal the untraced step's bit for bit" if spans is not None else
-           "; its answers differ from the untraced step's, so its metrics are left out"))
+        + ("; its answers equal the window's bit for bit" if same_a else
+           "; its answers differ from the window's, so its metrics are left out"))
+    if same_a:
+        ctx.program_spans = rec_a.spans
 
     bt.reset_launch_counts()
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda"
@@ -247,8 +226,8 @@ def _steps(ctx):
     log(f"[spans] (b) tracer on under torch.profiler: {wall_b:.6f} s against the profiled "
         f"step's {ctx.trace.window_s:.6f} s ({100.0 * (wall_b / ctx.trace.window_s - 1.0):+.2f}%);"
         f" {len(rec_b.spans)} spans; fit steps {steps}; launches {bt.launch_counts()}"
-        + ("; its answers equal the untraced step's bit for bit" if same_b else
-           "; its answers differ from the untraced step's, so its metrics are left out"))
+        + ("; its answers equal the window's bit for bit" if same_b else
+           "; its answers differ from the window's, so its metrics are left out"))
     launches, idle = launches_in(program), idle_in(program)
     log(f"[spans] (b) inside {FIT_LOOP}: {launches} launch calls over "
         f"{None if steps is None else sum(steps.values())} optimiser steps; card idle "
@@ -259,24 +238,14 @@ def _steps(ctx):
         f"{k} {v[0] * 1e3:.3f} idle {v[1] * 1e3:.3f}" for k, v in self_idle(program).items()))
     log("[spans] (b) longest idle gaps: " + "; ".join(
         f"{name} {length * 1e3:.3f} ms" for name, length in named_gaps(program)))
-    if not same_b:
-        return spans, None, None
-    return spans, program, steps
-
-
-def gather(ctx):
-    """Set ``ctx.program_spans``, ``ctx.program_trace`` and ``ctx.fit_steps``
-    once (None each in a run without ``--trace 1``); returns ``ctx``."""
-    if not hasattr(ctx, "program_spans"):
-        found = (None, None, None) if ctx.trace is None else _steps(ctx)
-        ctx.program_spans, ctx.program_trace, ctx.fit_steps = found
-    return ctx
+    if same_b:
+        ctx.program_trace, ctx.fit_steps = program, steps
 
 
 def span_ms(ctx, name: str) -> tp.Optional[float]:
-    """Device milliseconds of the ``name`` spans of step (a)'s step, summed
-    over its collections; None where there are none or they ran on the CPU."""
-    spans = gather(ctx).program_spans
+    """Device milliseconds of the ``name`` spans of step (a), summed over its
+    collections; None where there are none or they ran on the CPU."""
+    spans = ctx.program_spans
     if not spans:
         return None
     root = next((s.root for s in spans if s.name == "step"), None)
@@ -289,7 +258,6 @@ def span_ms(ctx, name: str) -> tp.Optional[float]:
 def launches_per_iter(ctx) -> tp.Optional[float]:
     """Launch calls inside the optimiser loops of step (b) over its
     optimiser steps."""
-    gather(ctx)
     program, steps = ctx.program_trace, ctx.fit_steps
     if program is None or not program.device or not steps or sum(steps.values()) <= 0:
         return None
@@ -300,7 +268,7 @@ def launches_per_iter(ctx) -> tp.Optional[float]:
 def idle_pct(ctx) -> tp.Optional[float]:
     """The share of step (b)'s optimiser loops in which the card ran
     nothing, in percent."""
-    program = gather(ctx).program_trace
+    program = ctx.program_trace
     if program is None or not program.device:
         return None
     idle = idle_in(program)

@@ -12,18 +12,21 @@ A run makes a pool of distinct input sets from the seed, loads the port,
 builds its kernels (once a checkout: ``build/torch_kernels/``) and warms up
 every shape with a short fit (set-up), then runs whole steps of the port's
 entry in a closed loop for ``--seconds``, each step ended when its answers
-are on the host, every step started in the window finished.  With
-``--trace 1`` it then runs the sampled step once more stage by stage under
-the benchmark's spans and once under ``torch.profiler``.  Last, with the
-program's state freed, the plain reference (``portbench/reference``) works
-out the answers of one pool entry, drawn from the seed among those the
-window finished, in float64 from the same inputs, and every answer the
-window gave for that entry is compared with it.
+are on the host, every step started in the window finished.  One pool
+entry is drawn from the seed among those the window finished.  With
+``--trace 1`` the run then repeats that entry's step three times: once under
+``torch.profiler`` with the port's tracer off, and twice with it on
+(``portbench/program_spans.py``), each held bit for bit to the window's
+answers.  Last, with the program's state freed, the plain reference
+(``portbench/reference``) works out that entry's answers in float64 from the
+same inputs, and every answer the window gave for it is compared with it.
 
-Standard error carries the log, and last the numbers compared beside their
-limits; the last line of standard output is the result.  Without a CUDA
-device, with fewer than the cell asks for, with TF32 switched on, or with
-JAX or the JAX package loaded, the run prints no result and exits 2.
+Standard error carries the log, a ``[phases]`` line with the seconds of
+set-up, window, traced steps, reference and readers, and last the numbers
+compared beside their limits; the last line of standard output is the
+result.  Without a CUDA device, with fewer than the cell asks for, with TF32
+switched on, or with JAX or the JAX package loaded, the run prints no result
+and exits 2.
 """
 
 from __future__ import annotations
@@ -33,7 +36,6 @@ import time
 _START = time.perf_counter()
 
 import argparse  # noqa: E402
-import contextlib  # noqa: E402
 import dataclasses  # noqa: E402
 import gc  # noqa: E402
 import importlib  # noqa: E402
@@ -124,8 +126,11 @@ class Context:
     setup_s: float
     step_s: float
     peak_window_bytes: int
-    spans: tp.Optional[tp.Dict[str, float]] = None
     trace: tp.Any = None
+    # Set by ``program_spans.traced_steps`` in a traced run.
+    program_spans: tp.Any = None
+    program_trace: tp.Any = None
+    fit_steps: tp.Optional[tp.Dict[str, int]] = None
 
 
 def read_metric(name: str, ctx: Context):
@@ -291,33 +296,22 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device):
     k = _sampled(seed, answers)
 
     ctx = Context(cell=cell, setup_s=setup_s, step_s=step_s, peak_window_bytes=peak_window)
+    traced_start = time.perf_counter()
     if trace:
-        spans: tp.Dict[str, float] = {}
+        from portbench import program_spans
 
-        @contextlib.contextmanager
-        def span(stage):
-            _sync(torch, device)
-            t0 = time.perf_counter()
-            yield
-            _sync(torch, device)
-            spans[stage] = spans.get(stage, 0.0) + time.perf_counter() - t0
-
-        staged = _host(entry.staged(bt, tensors[k], config, profile, span))
-        same = all(np.array_equal(a, b) for a, b in zip(staged, answers[k][0]))
-        log(f"[trace] staged step of pool entry {k}: " + ", ".join(
-            f"{s} {v:.6f} s" for s, v in spans.items())
-            + ("; its answers equal the step's bit for bit" if same else
-               "; its answers differ from the step's, so the stage metrics are left out"))
-        ctx.spans = spans if same else None
         bt.reset_launch_counts()
         out, ctx.trace = _profiled(torch, lambda: entry.step(bt, tensors[k], config, profile),
                                    device)
         log(f"[trace] the profiled step's counters: launches {bt.launch_counts()}, routes "
             f"{bt.route_counts()}")
-        log(f"[trace] profiled step: {ctx.trace.window_s:.6f} s (untraced step_s {step_s:.6f}), "
-            f"{len(ctx.trace.device)} device activities, busy {ctx.trace.busy_s:.6f} s")
+        log(f"[trace] profiled step of pool entry {k}: {ctx.trace.window_s:.6f} s (untraced "
+            f"step_s {step_s:.6f}), {len(ctx.trace.device)} device activities, busy "
+            f"{ctx.trace.busy_s:.6f} s")
         if not all(np.array_equal(a, b) for a, b in zip(out, answers[k][0])):
             log("[trace] the profiled step's answers differ from the window's")
+        program_spans.traced_steps(ctx, bt, entry, tensors[k], answers[k][0], device)
+    traced_s = time.perf_counter() - traced_start
 
     del tensors
     gc.collect()
@@ -337,6 +331,9 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device):
     wrong = sum(any(n[name] > c["limit"] for name, c in spec.items()) for n in numbers)
     correct = unfinished == 0 and all(value <= limit for _, value, limit in checks)
 
+    ref_s = time.perf_counter() - ref_start
+
+    readers_start = time.perf_counter()
     kinds = cell.per_layer if trace else cell.end_to_end
     metrics = {}
     for m in kinds:
@@ -362,6 +359,10 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device):
         result["breakdown"] = {"device_ops": ctx.trace.top_device_ops(),
                                "idle_gaps": ctx.trace.longest_idle_gaps()}
     result["checks"] = {name: {"value": value, "limit": limit} for name, value, limit in checks}
+    log(f"[phases] setup {setup_s:.3f} s, window {window_end - window_start:.3f} s, traced steps "
+        f"{traced_s:.3f} s, reference {ref_s:.3f} s, readers "
+        f"{time.perf_counter() - readers_start:.3f} s; {time.perf_counter() - _START:.3f} s "
+        "since the process started")
     return result, checks
 
 

@@ -74,7 +74,11 @@ def test_every_cell_loads_with_its_files(workload):
     assert (ROOT / config["file"]).is_file()
     assert cell.config["reduced"] == config["reduced"]
     assert (BENCH / "entries" / f"{cell.config['entry']}.py").is_file()
+    assert (BENCH / "generators" / f"{cell.config['generator']}.py").is_file()
     entry = importlib.import_module(f"portbench.entries.{cell.config['entry']}")
+    for name in ("OUTPUTS", "TINY", "tensors", "step", "reference", "collections"):
+        assert hasattr(entry, name), name
+    assert set(entry.TINY) <= set(cell.config["shape"])
     for check in cell.workload["checks"].values():
         assert check["output"] in entry.OUTPUTS and check["statistic"] in run.STATISTICS
         assert check["limit"] > 0.0
@@ -111,7 +115,7 @@ def test_a_metric_that_finds_nothing_is_left_out():
     cell = run.Cell.named("gridded-5deg.fast")
     ctx = run.Context(cell=cell, setup_s=1.0, step_s=0.5, peak_window_bytes=0)
     assert run.read_metric("chol_solve_roofline", ctx) is None
-    assert run.read_metric("stage.fit_ms", ctx) is None
+    assert run.read_metric("span.fit_ms", ctx) is None
     assert run.read_metric("device.idle_pct", ctx) is None
     assert run.read_metric("step_mfu", ctx) > 0.0
 
@@ -144,6 +148,93 @@ def test_step_operations_match_hand_counts(b, t, d):
         dba + b * 4 * t * d + distances + 7 * grad + posterior)
     assert work.emulation_ops(b, t, d, bfgs) == pytest.approx(
         dba + b * 4 * t * d + distances + 7 * (grad + value) + posterior)
+
+
+# What the harness counted and drew before the entries counted their own
+# batches and each generator had a file of its own: the pools of seed 7 (two
+# draws, each array's name, dtype, shape and bytes, SHA-256) and the counts.
+PINNED = {
+    "annual-flagship.faithful": dict(
+        pool="926d54ee2da59a929d1341d00c048cd37d13a8d3082724c406421054656b0504",
+        collections=[(112, 165, 29), (112, 86, 29)], step_ops=1303094225141.3333,
+        chol_solve=0.018798113165373134, tri_inv=0.013930266727164178),
+    "gridded-5deg.fast": dict(
+        pool="283f2d1edd0c86b41ca016366ad4986b3cc2513d496a1ff9274868bcc200fb68",
+        collections=[(41472, 86, 29)], step_ops=1806552557568.0,
+        chol_solve=0.0457235361241791, tri_inv=0.01709621920477612),
+}
+
+
+def pool_digest(config, seed, size):
+    import hashlib
+
+    from portbench.traffic import generate
+
+    digest = hashlib.sha256()
+    for x in generate.pool(config, seed, size):
+        for key in sorted(x):
+            a = x[key]
+            for part in (key, str(a.dtype), str(a.shape)):
+                digest.update(part.encode())
+            digest.update(a.tobytes())
+    return digest.hexdigest()
+
+
+@pytest.mark.parametrize("workload", sorted(PINNED))
+def test_the_pool_is_the_one_drawn_before(workload):
+    cell = run.Cell.named(workload)
+    assert pool_digest(cell.config, 7, 2) == PINNED[workload]["pool"]
+
+
+@pytest.mark.parametrize("workload", sorted(PINNED))
+def test_the_operation_counts_are_the_ones_counted_before(workload):
+    cell, pinned = run.Cell.named(workload), PINNED[workload]
+    assert [tuple(c) for c in work.collections(cell.config)] == pinned["collections"]
+    assert work.step_ops(cell.config, cell.profile) == pinned["step_ops"]
+    for kernel in ("chol_solve", "tri_inv"):
+        assert work.kernel_step_seconds(kernel, cell.config, cell.profile) == pinned[kernel]
+
+
+def stub_context(cell, traced):
+    """A context of ``cell`` as a run fills it, with a stub trace: kernels of
+    both rooflines on the card, the port's spans and one optimiser loop."""
+    import types
+
+    import numpy as np
+
+    from portbench.trace import Trace
+
+    ctx = run.Context(cell=cell, setup_s=9.5, step_s=1.5, peak_window_bytes=3 * 2 ** 30)
+    if traced:
+        host = [("bet.step", 0.0, 2.0), ("bet.fit", 0.1, 1.8), ("bet.fit.loop", 0.2, 1.7),
+                ("cudaLaunchKernel", 0.3, 0.31), ("cudaGraphLaunch", 0.5, 0.51)]
+        device = [("chol_solve_kernel<float>", 0.3, 0.4), ("tri_inv_kernel<float>", 0.8, 0.3),
+                  ("elementwise", 1.2, 0.5)]
+        ctx.trace = ctx.program_trace = Trace(
+            window_s=2.0, device=device, host_names=[h[0] for h in host],
+            host_start=np.array([h[1] for h in host]), host_end=np.array([h[2] for h in host]))
+        ctx.program_spans = [types.SimpleNamespace(name=name, id=i, root=1, device_ms=ms)
+                             for i, (name, ms) in enumerate(
+                                 [("step", 1900.0), ("dba", 5.0), ("fit", 1500.0),
+                                  ("fit.loop", 1400.0), ("posterior", 3.0), ("tail", 2.0)], 1)]
+        ctx.fit_steps = {"adam": 2, "bfgs": 0, "lbfgs": 0}
+    return ctx
+
+
+@pytest.mark.parametrize("traced", [False, True])
+@pytest.mark.parametrize("workload, metric", [
+    (w["name"], m["name"]) for w in bench()["workloads"]
+    for m in run.Cell.named(w["name"]).end_to_end + run.Cell.named(w["name"]).per_layer])
+def test_every_reader_of_a_cell_reads_a_number_or_nothing(workload, metric, traced):
+    """Each metric that applies to the cell, from a context built from the
+    cell's files: a finite number, or None where there is nothing to read;
+    never an error.  Traced, every metric of the stub reads a number."""
+    import math
+
+    value = run.read_metric(metric, stub_context(run.Cell.named(workload), traced))
+    assert value is None or (isinstance(value, float) and math.isfinite(value)), value
+    if traced:
+        assert value is not None
 
 
 def test_kernel_least_seconds_at_the_gridded_step():

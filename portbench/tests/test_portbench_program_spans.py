@@ -26,7 +26,7 @@ PROGRAM_METRICS = SPAN_METRICS + ("fit.launches_per_iter", "fit.idle_pct")
 
 
 def ctx_with(spans=None, trace=None, steps=None):
-    """A context whose program fields are already gathered."""
+    """A context whose program fields the traced steps have set."""
     return types.SimpleNamespace(trace=object(), program_spans=spans, program_trace=trace,
                                  fit_steps=steps)
 
@@ -136,31 +136,62 @@ def test_self_idle_and_the_gaps_are_put_down_to_the_innermost_span():
 
 
 def test_a_program_without_the_tracer_gives_nothing_and_runs_nothing(monkeypatch):
+    import bayesian_ensembling_tpu_torch as bt
+    import torch
     from bayesian_ensembling_tpu_torch.utils import profiling
 
     monkeypatch.delattr(profiling, "recording")
-    ctx = types.SimpleNamespace(trace=synthetic_trace(), cell=None, step_s=1.0)
+
+    class Entry:
+        calls = 0
+
+        @classmethod
+        def step(cls, *args):
+            cls.calls += 1
+            return ()
+
+    cell = run.Cell.named("gridded-5deg.fast")
+    ctx = run.Context(cell=cell, setup_s=1.0, step_s=1.0, peak_window_bytes=0,
+                      trace=synthetic_trace(), program_spans=[], program_trace=object(),
+                      fit_steps={"adam": 1})
+    program_spans.traced_steps(ctx, bt, Entry, (), (), torch.device("cpu"))
+    assert Entry.calls == 0
+    assert (ctx.program_spans, ctx.program_trace, ctx.fit_steps) == (None, None, None)
     for name in PROGRAM_METRICS:
         assert run.read_metric(name, ctx) is None
-    assert (ctx.program_spans, ctx.program_trace, ctx.fit_steps) == (None, None, None)
 
 
 def test_a_run_without_a_trace_gathers_nothing():
-    ctx = types.SimpleNamespace(trace=None)
-    assert program_spans.gather(ctx).program_spans is None and ctx.fit_steps is None
+    ctx = run.Context(cell=run.Cell.named("gridded-5deg.fast"), setup_s=1.0, step_s=1.0,
+                      peak_window_bytes=0)
+    assert (ctx.program_spans, ctx.program_trace, ctx.fit_steps) == (None, None, None)
+    for name in PROGRAM_METRICS:
+        assert run.read_metric(name, ctx) is None
 
 
-def test_a_traced_run_on_the_cpu_runs_the_traced_steps_and_reads_no_device_metric(capsys):
+def test_a_traced_run_on_the_cpu_runs_the_traced_steps_and_reads_no_device_metric(capsys,
+                                                                                 monkeypatch):
+    import importlib
+
     import torch
 
     cell = copy.deepcopy(run.Cell.named("gridded-5deg.fast"))
-    cell.config["shape"].update(models=3, lat=2, lon=2, realisations=3, t=10, obs_members=4)
+    entry = importlib.import_module(f"portbench.entries.{cell.config['entry']}")
+    cell.config["shape"].update(entry.TINY)
     cell.traffic[cell.config["entry"]].update(n_optim_nits=4)
     cell.workload["pool"] = 1
+    calls = []
+    step = entry.step
+    monkeypatch.setattr(entry, "step", lambda *a: calls.append(1) or step(*a))
     result, _ = run.run_cell(cell, 2 ** 31 + 5, 0.2, True, torch.device("cpu"))
     assert result["correct"]
+    # The warm-up, the window's steps, then the profiled step, (a) and (b).
+    assert len(calls) == 1 + result["attempted"] + 3
     assert not set(PROGRAM_METRICS) & set(result["metrics"])
     err = capsys.readouterr().err
     assert "[spans] (a) tracer on" in err and "[spans] (b) tracer on under torch.profiler" in err
-    assert err.count("equal the untraced step's bit for bit") == 2
+    assert err.count("equal the window's bit for bit") == 2
     assert "fit steps {'adam': 0, 'bfgs': 4, 'lbfgs': 0}" in err
+    phases = next(line for line in err.splitlines() if line.startswith("[phases]"))
+    for phase in ("setup", "window", "traced steps", "reference", "readers"):
+        assert f" {phase} " in phases

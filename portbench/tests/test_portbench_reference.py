@@ -19,19 +19,16 @@ from portbench import run  # noqa: E402
 from portbench.reference import dba, gp  # noqa: E402
 from portbench.traffic import generate  # noqa: E402
 
-TINY = {
-    "multi_scenario": dict(scenarios=2, models=3, min_real_models=2, realisations=5, t_hist=14,
-                           t_ssp=9, obs_members=6),
-    "gridded": dict(models=3, lat=2, lon=2, realisations=4, t=11, obs_members=5),
-}
 # Float64 round-off carried through a fit: the port and the reference order
 # their sums differently, and an optimiser passes the difference on.
 F64_TOL = 1e-8
 
 
 def tiny_cell(name, **profile):
+    """The cell cut to its entry's tiny shape (the entry's ``TINY``)."""
     cell = copy.deepcopy(run.Cell.named(name))
-    cell.config["shape"].update(TINY[cell.config["entry"]])
+    entry = importlib.import_module(f"portbench.entries.{cell.config['entry']}")
+    cell.config["shape"].update(entry.TINY)
     cell.traffic[cell.config["entry"]].update(profile)
     return cell
 

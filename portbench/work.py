@@ -12,6 +12,8 @@ TFLOP/s in float32 outside the tensor cores (TF32 is off in every cell) and
 
 from __future__ import annotations
 
+import importlib
+
 FP32_FLOPS = 67e12
 HBM_BYTES_PER_S = 3.35e12
 
@@ -112,14 +114,9 @@ def emulation_ops(b, t, d, profile):
 
 
 def collections(config):
-    """The batches one step emulates, as (b, t, d) triples."""
-    s = config["shape"]
-    if config["entry"] == "multi_scenario":
-        b = s["scenarios"] * s["models"]
-        return [(b, s["t_hist"], s["realisations"]), (b, s["t_ssp"], s["realisations"])]
-    if config["entry"] == "gridded":
-        return [(s["models"] * s["lat"] * s["lon"], s["t"], s["realisations"])]
-    raise ValueError(f"no operation count for the entry {config['entry']!r}")
+    """The batches one step emulates, as (b, t, d) triples: asked of the
+    entry the configuration names (``portbench/entries``)."""
+    return importlib.import_module(f"portbench.entries.{config['entry']}").collections(config)
 
 
 def step_ops(config, profile):
