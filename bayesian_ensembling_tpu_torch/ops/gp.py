@@ -369,26 +369,26 @@ def _make_batch_opt(optimizer: str, learning_rate: float, params: BatchedGPParam
     raise ValueError(f"unknown optimizer {optimizer!r}")
 
 
-def _build_batch_step(x, y, noise_var, kernel_name, jitter, optimizer):
+def _build_batch_step(x, y, noise_var, kernel_name, jitter, optimizer, route=None):
     """The per-iteration step of the batched NLML optimisation,
     ``step(params, opt) -> per-model NLML (M,)`` at the iterate, updating
     ``params`` and the optimiser state ``opt`` in place.
 
     Shared by :func:`fit_gp_batch` and :func:`fit_gp_batch_segment`, so a
     fit split into segments runs the exact same step sequence as the merged
-    one.  ``linalg_cuda.linalg_path(T, b=M, dtype)`` picks the NLML once, as
-    the JAX package does: the recursive blocked NLML on the blocked route,
-    else ``linalg_cuda.nlml_terms``.
+    one.  ``route``, ``linalg_cuda.linalg_path(T, b=M, dtype)`` unless the
+    caller has it, picks the NLML once, as the JAX package does: the
+    recursive blocked NLML on the blocked route, else
+    ``linalg_cuda.nlml_terms``.
     """
     m, t, _ = x.shape
     precompute, apply_fn = get_kernel_precomputed(kernel_name)
     stat = precompute(x, x)  # hyperparameter-independent: hoisted out of the loop
     diag_noise = torch.diag_embed(noise_var)
     jitter_eye = jitter * torch.eye(t, dtype=y.dtype, device=y.device)
-    if linalg_cuda.linalg_path(t, b=m, dtype=y.dtype) == "blocked":
-        nlml = nlml_terms_blocked
-    else:
-        nlml = linalg_cuda.nlml_terms
+    if route is None:
+        route = linalg_cuda.linalg_path(t, b=m, dtype=y.dtype)
+    nlml = nlml_terms_blocked if route == "blocked" else linalg_cuda.nlml_terms
 
     def nlml_vec(params):
         ky = apply_fn(params, stat) + diag_noise + jitter_eye
@@ -623,14 +623,19 @@ def fit_gp_batch_segment(
     step (``_adam_graphed``), bit for bit the eager loop; on the CPU, and
     for the other optimisers, each step is a Python call.
 
+    The ``fit.loop`` span carries the segment's linear-algebra ``route``
+    (``linalg_cuda.linalg_path``: ``kernel``, ``blocked`` or ``library``),
+    the one its step takes.
+
     Returns ``(params, opt_state, losses (M, n_steps))``.
     """
-    step = _build_batch_step(x, y, noise_var, kernel_name, jitter, optimizer)
+    route = linalg_cuda.linalg_path(y.shape[-1], b=x.shape[0], dtype=y.dtype)
+    step = _build_batch_step(x, y, noise_var, kernel_name, jitter, optimizer, route)
     losses = torch.empty((n_steps, x.shape[0]), dtype=y.dtype, device=y.device)
     graphed = optimizer == "adam" and y.is_cuda and n_steps > GRAPH_WARMUP_STEPS
     replays = n_steps - GRAPH_WARMUP_STEPS if graphed else 0
     with span("fit.loop", y, B=y.shape[0], T=y.shape[-1], optimizer=optimizer, steps=n_steps,
-              replays=replays):
+              replays=replays, route=route):
         if graphed:
             with _capture_lock:
                 _adam_graphed(step, params, opt_state, losses)

@@ -37,6 +37,7 @@ from bayesian_ensembling_tpu_torch.parallel.step import (
     multi_scenario_tail,
     pad_models,
 )
+from bayesian_ensembling_tpu_torch.utils.profiling import span
 
 __all__ = [
     "DedupCampaign",
@@ -174,6 +175,12 @@ def run_dedup_campaign(
 
     Returns:
       ``(bary_mean (S, T_ssp), bary_std (S, T_ssp), weights (S, M))``.
+
+    With the tracer on (``utils.profiling.recording``) the campaign is one
+    ``step`` span, the root of its chunks' and the SSP batch's ``dba``,
+    ``fit`` and ``posterior`` spans and of its ``tail``; ``B`` counts the
+    unique fits, ``T`` is the historical length, ``chunks`` the historical
+    chunks.
     """
     _check_step_options(weight_kind, sigma_mode, None)
     device = resolve_device(device, "run_dedup_campaign")
@@ -183,16 +190,19 @@ def run_dedup_campaign(
         return torch.as_tensor(a, dtype=torch.bool if a.dtype == bool else dtype, device=device)
 
     em = functools.partial(emulate_marginals, **fit_kw)
-    uidx = torch.as_tensor(pack.uidx, device=device)
-    sidx = torch.as_tensor(pack.sidx, device=device)
-    h_mu_u, h_var_u = chunked_marginals(em, tensor(pack.uh), tensor(pack.um), hist_chunk)
-    s_mu_f, s_var_f = em(tensor(pack.usb), tensor(pack.usm))
-    return multi_scenario_tail(
-        h_mu_u[uidx], h_var_u[uidx], s_mu_f[sidx], s_var_f[sidx],
-        torch.as_tensor(obs, dtype=dtype, device=device),
-        tensor(pack.hb), tensor(pack.hm), tensor(pack.mmask),
-        weight_kind=weight_kind, sigma_mode=sigma_mode,
-    )
+    uh = tensor(pack.uh)
+    with span("step", uh, B=pack.n_fits, T=uh.shape[-1], T_ssp=pack.usb.shape[-1],
+              chunks=-(-uh.shape[0] // max(hist_chunk, 1))):
+        uidx = torch.as_tensor(pack.uidx, device=device)
+        sidx = torch.as_tensor(pack.sidx, device=device)
+        h_mu_u, h_var_u = chunked_marginals(em, uh, tensor(pack.um), hist_chunk)
+        s_mu_f, s_var_f = em(tensor(pack.usb), tensor(pack.usm))
+        return multi_scenario_tail(
+            h_mu_u[uidx], h_var_u[uidx], s_mu_f[sidx], s_var_f[sidx],
+            torch.as_tensor(obs, dtype=dtype, device=device),
+            tensor(pack.hb), tensor(pack.hm), tensor(pack.mmask),
+            weight_kind=weight_kind, sigma_mode=sigma_mode,
+        )
 
 
 def make_sharded_dedup_campaign(

@@ -1,0 +1,13 @@
+"""fit.library_ms: milliseconds the card's stream took over the optimiser
+loops on the ``library`` route (``torch.linalg``: T above the kernels' cap
+and off the blocked route) in one step run with the port's tracer on: the
+``fit.loop`` spans' CUDA-event times whose ``route`` attribute is
+``library``, summed under the step's root (``portbench/fit_loops.py``).
+0.0 where the loops carry a route and none is ``library``; nothing to read
+where the loops carry no route."""
+
+from portbench import fit_loops
+
+
+def read(ctx):
+    return fit_loops.route_ms(ctx, "library")

@@ -5,6 +5,7 @@ The tracer is off by default; on, it records each layer of a step where the
 work is issued (``step`` -> per collection ``dba``, ``fit`` -> ``fit.loop``,
 ``posterior`` -> ``tail``) without changing a bit of the answers, and under
 ``torch.profiler`` each span is a ``bet.*`` range nested as the spans are.
+Each ``fit.loop`` carries the linear-algebra route its step takes.
 """
 
 import numpy as np
@@ -50,13 +51,53 @@ def _gridded(**fit):
     return lambda: bt.gridded_ensemble_step(block, obs, mask, None, **kw)
 
 
-STEPS = {"multi_scenario": _multi_scenario, "gridded": _gridded}
+class _Collection:
+    """What ``pack_dedup_campaign`` reads of a collection."""
+
+    def __init__(self, names, block, mask):
+        self.model_names, self.block, self.mask = names, block, mask
+
+    def __len__(self):
+        return len(self.model_names)
+
+    @property
+    def max_realisations(self):
+        return self.block.shape[1]
+
+    def padded_stack(self, r_target=None):
+        return self.block, self.mask
+
+
+def _dedup_campaign(**fit):
+    """Three historical models, two of them listed by both scenarios, fitted
+    in two chunks of two; five SSP runs in one batch."""
+    rng = np.random.default_rng(6)
+    u, r = 3, 4
+    hb, hm = (a.numpy() for a in _blocks(rng, (u,), r, 16))
+    sb, _ = _blocks(rng, (5,), r, 10)
+    names = [f"m{k}" for k in range(u)]
+    scenarios, row = [], 0
+    for si, listed in enumerate(([0, 1, 2], [1, 2])):
+        ssp = np.where(hm[listed][:, :, None], sb[row:row + len(listed)].numpy(), 0.0)
+        row += len(listed)
+        scenarios.append((f"s{si}", _Collection([names[k] for k in listed], hb[listed], hm[listed]),
+                          _Collection([names[k] for k in listed], ssp, hm[listed])))
+    pack = bt.pack_dedup_campaign(scenarios)
+    obs = np.linspace(0.0, 1.0, 16) + 0.1 * rng.normal(size=(5, 16))
+    kw = dict(dict(n_optim_nits=NITS, dba_iterations=2), **fit)
+    return lambda: bt.run_dedup_campaign(pack, obs, hist_chunk=2, device="cpu",
+                                         dtype=torch.float64, **kw)
+
+
+STEPS = {"multi_scenario": _multi_scenario, "gridded": _gridded,
+         "dedup_campaign": _dedup_campaign}
 # The spans of one step in the order they begin, with their depth below it.
+_COLLECTION = [("dba", 1), ("fit", 1), ("fit.loop", 2), ("posterior", 1)]
 TREES = {
-    "multi_scenario": [("step", 0)] + [("dba", 1), ("fit", 1), ("fit.loop", 2),
-                                        ("posterior", 1)] * 2 + [("tail", 1)],
-    "gridded": [("step", 0), ("dba", 1), ("fit", 1), ("fit.loop", 2), ("posterior", 1),
-                ("tail", 1)],
+    "multi_scenario": [("step", 0)] + _COLLECTION * 2 + [("tail", 1)],
+    "gridded": [("step", 0)] + _COLLECTION + [("tail", 1)],
+    # two historical chunks, then the SSP batch
+    "dedup_campaign": [("step", 0)] + _COLLECTION * 3 + [("tail", 1)],
 }
 
 
@@ -139,6 +180,46 @@ def test_fit_step_counts_count_the_optimiser_steps_of_every_route(route, kw, wan
     assert all(s.parent == fit.id for s in inner)
     bt.reset_launch_counts()
     assert bt.fit_step_counts() == {"adam": 0, "bfgs": 0, "lbfgs": 0}
+
+
+def test_the_campaign_step_counts_its_unique_fits_and_chunks():
+    with profiling.recording() as rec:
+        STEPS["dedup_campaign"]()()
+    step = rec.spans[0]
+    assert step.name == "step" and step.parent is None
+    assert {k: step.attrs[k] for k in ("B", "T", "T_ssp", "chunks")} == dict(
+        B=3 + 5, T=16, T_ssp=10, chunks=2)
+    assert [s.attrs["B"] for s in rec.spans if s.name == "fit"] == [2, 2, 5]
+
+
+@pytest.mark.filterwarnings("ignore:batched linalg")
+@pytest.mark.parametrize("dtype, b, t, fine", [
+    (torch.float64, 4, 48, "kernel"),
+    (torch.float64, 4, 170, "library"),  # past float64's kernel cap of 168
+    (torch.float32, 64, 241, "blocked"),  # float32, B >= 64, 239 < T <= 1536
+])
+def test_every_fit_loop_carries_the_route_its_step_takes(dtype, b, t, fine):
+    """A coarse-to-fine fit: the coarse loop (T / 12) on the kernels, the
+    fine loop on ``fine``; each loop's ``route`` is ``linalg_path``'s at its
+    batch, length and dtype, and the routed calls counted are those routes'."""
+    from bayesian_ensembling_tpu_torch.ops import linalg_cuda
+
+    rng = np.random.default_rng(7)
+    x = torch.as_tensor(rng.normal(size=(b, t, 3)), dtype=dtype)
+    y = torch.as_tensor(np.sin(np.linspace(0.0, 3.0, t)) + 0.1 * rng.normal(size=(b, t)),
+                        dtype=dtype)
+    noise = torch.as_tensor(rng.uniform(0.05, 0.2, size=(b, t)), dtype=dtype)
+    bt.reset_launch_counts()
+    with profiling.recording() as rec:
+        gp_ops.fit_gp_batch_dispatch(x, y, noise, n_optim_nits=2, time_stride=12, fine_steps=2)
+    loops = [s for s in rec.spans if s.name == "fit.loop"]
+    assert [s.attrs["T"] for s in loops] == [-(-t // 12), t]
+    for s in loops:
+        assert s.attrs["route"] == linalg_cuda.linalg_path(s.attrs["T"], b=s.attrs["B"],
+                                                           dtype=dtype)
+    assert [s.attrs["route"] for s in loops] == ["kernel", fine]
+    assert {k for k, v in bt.route_counts().items() if v} == {"kernel", fine}
+    bt.reset_launch_counts()
 
 
 def test_a_step_counts_n_optim_nits_per_collection():
