@@ -3,8 +3,9 @@
 PyTorch counterpart of ``bayesian_ensembling_tpu/ops/linalg_blocked.py``.
 Beyond the kernels' shared-memory cap (``linalg_cuda.KERNEL_T_CAP``), a
 large float32 batch (``linalg_cuda.linalg_path(t, b)`` returns
-``"blocked"``: the monthly SSP batch, B = 65 at T = 1032) factors each
-matrix by a recursive 2x2-block scheme:
+``"blocked"``: the monthly campaign's SSP batch, B = 65 at T = 1032, and
+its historical chunk, B = 28 at T = 1980) factors each matrix by a
+recursive 2x2-block scheme:
 
   * the ``nb x nb`` diagonal blocks go through the Cholesky kernel
     (``csrc/chol.cu``) and the triangular-inverse kernel
@@ -17,7 +18,7 @@ The recursion computes ``W = L^-1`` with the factor's log-diagonal, so the
 NLML forward is two matrix-vector products, and the custom backward gets
 ``K^-1 = W^T W`` with no new factorisation.  At T = 1032, padded to 1152,
 the recursion has 9 leaves: each NLML evaluation launches 9 Cholesky and 9
-triangular-inverse kernels.
+triangular-inverse kernels; at T = 1980, padded to 2048, 16 of each.
 
 Layout: ``(B, T, T)`` batch-major throughout.
 """

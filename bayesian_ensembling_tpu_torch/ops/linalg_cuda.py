@@ -139,11 +139,21 @@ SOLVE_VEC_T_CAP = {
     dtype: _build.largest_t(lambda t, e=dtype.itemsize: _solve_vec_streamed_smem_bytes(t, e))
     for dtype in (torch.float32, torch.float64)
 }
-# The JAX package's blocked-route gates, kept by name and value
-# (linalg_pallas.py:506-511); they were tuned on a TPU v5e and are still to
-# be re-decided on the H100.
-BLOCKED_T_CAP = 1536
-BLOCKED_MIN_BATCH = 64
+# The blocked-route gates, the H100's values (the JAX package's names; its
+# TPU v5e values were 1536 and 64).  Set from one float32 NLML value and
+# gradient, eager and in a CUDA graph, and one graphed Adam step of the fit,
+# on both routes over B in {4, 8, 16, 28, 65, 112} and T in {240, 512, 1032,
+# 1536, 1980, 2400, 3012} (``python3 -m
+# bayesian_ensembling_tpu_torch.utils.linalg_route_times``; the table is in
+# PERF.md section 6).  In a graph, as the Adam fit runs, the blocked route is
+# the faster at every measured shape (1.46-1.94x at B >= 28, T >= 1032), and
+# from T = 1536 on it also holds less memory at its peak.  Eagerly, T <= 1032
+# is host-bound and either route may win; at B <= 16 the library route is as
+# fast there in several cells and holds less memory at T <= 512, so the
+# batch gate keeps the small batches on it.  The cap is the largest T
+# measured: nothing beyond it was timed.
+BLOCKED_T_CAP = 3012
+BLOCKED_MIN_BATCH = 28
 # The JAX package's blocked route is float32 only (linalg_pallas.py:559-562).
 BLOCKED_DTYPES = (torch.float32,)
 

@@ -25,8 +25,10 @@ Phases, in order; any failure exits non-zero:
    the fused kernel at T = 165), the Cholesky and the triangular inverse at
    the blocked NLML's leaves (B = 65, T = 128; the Cholesky with a
    non-positive-definite slot), the blocked NLML in float32 against
-   torch.linalg in float64 (B = 65, T = 1032), and the route timings that
-   the linalg_path thresholds are decided from; then the vector solve
+   torch.linalg in float64 at the campaign's two fits (B = 65, T = 1032;
+   B = 28, T = 1980), and both routes' times there (the whole table that
+   the linalg_path thresholds are decided from is
+   ``utils/linalg_route_times.py``'s); then the vector solve
    (given L: z, alpha, log-determinant) in float32 and float64 at the
    library path's shapes (B = 16, T = 165 and 86, where the Cholesky
    kernel is held against its plain version too; B = 1, T = 165, the
@@ -205,9 +207,9 @@ LINALG_TOL_F64 = 1e-10  # float64 kernel vs float64 plain version: another summa
 N_HIST_MODELS, SSP_MODELS = 20, (16, 12, 9, 8, 7, 7, 6)
 T_HIST_M, T_SSP_M, HIST_CHUNK = 1980, 1032, 28
 MONTHLY_NITS, MONTHLY_REPS = 500, 1  # timed runs after the checked one
-# float32 blocked NLML vs float64 torch.linalg at (65, 1032), relative to the
-# largest entry: float32 round-off of the Cholesky of a Gram whose condition
-# number is about 1e5 (T / noise).
+# float32 blocked NLML vs float64 torch.linalg at (65, 1032) and (28, 1980),
+# relative to the largest entry: float32 round-off of the Cholesky of a Gram
+# whose condition number is about 1e5 (T / noise).
 BLOCKED_TOL = 1e-2
 
 # The reference-faithful DBA (the flagship's subgradient DBA, 50 epochs) and
@@ -923,9 +925,9 @@ def check_monthly_kernels(torch, pack, dev, report):
     ok &= nan_ok
 
     # The blocked NLML (float32, kernels) against torch.linalg (float64) at
-    # the SSP fit's shape, then the route timings of one NLML value and
-    # gradient: blocked vs library at (65, 1032), library (and, beyond
-    # BLOCKED_T_CAP, blocked) at the historical chunk (28, 1980).
+    # the SSP fit's shape (65, 1032) and the historical chunk's (28, 1980),
+    # both on the blocked route, then the route timings of one NLML value
+    # and gradient there.
     timings = {}
     for name, block, nbatch in (("ssp", pack.usb, None), ("hist", uh, HIST_CHUNK)):
         feats = torch.tensor(block[:nbatch], dtype=torch.float32, device=dev).transpose(1, 2)
@@ -934,14 +936,15 @@ def check_monthly_kernels(torch, pack, dev, report):
         ky = _matern_spd(torch, feats.contiguous(), noise, dev)
         y = torch.tensor(rng.normal(size=(b, t)), dtype=torch.float32, device=dev)
         library = lc.nlml_terms  # T is beyond the kernels' cap: torch.linalg
-        if name == "ssp":
-            got = _nlml_step(torch, lb.nlml_terms_blocked, ky, y)
-            want = _nlml_step(torch, library, ky.double(), y.double())
-            torch.cuda.synchronize()
-            rels = [_rel(g, w_) for g, w_ in zip(got, want)]
-            log(f"  nlml_terms_blocked B={b} T={t} f32 vs library f64: rel err (quad, logdet, "
-                f"dK) = " + ", ".join(f"{e:.2e}" for e in rels) + f" (tol {BLOCKED_TOL})")
-            ok &= max(rels) < BLOCKED_TOL
+        got = _nlml_step(torch, lb.nlml_terms_blocked, ky, y)
+        want = _nlml_step(torch, library, ky.double(), y.double())
+        torch.cuda.synchronize()
+        rels = [_rel(g, w_) for g, w_ in zip(got, want)]
+        log(f"  nlml_terms_blocked B={b} T={t} ({name}, {lc.linalg_path(t, b=b)} route) f32 vs "
+            f"library f64: rel err (quad, logdet, dK) = " + ", ".join(f"{e:.2e}" for e in rels)
+            + f" (tol {BLOCKED_TOL})")
+        ok &= max(rels) < BLOCKED_TOL
+        del got, want
         for route, fn in (("blocked", lb.nlml_terms_blocked), ("library", library)):
             timings[(route, b, t)] = _cuda_ms(torch, lambda: _nlml_step(torch, fn, ky, y), 5)
             log(f"  route {route} B={b} T={t}: {timings[(route, b, t)]:.3f} ms per NLML value "
@@ -1009,15 +1012,18 @@ def run_monthly(torch, bt, dev, seed, report):
     bt.reset_launch_counts()
     dt, (bm, bs, w) = _wall(torch, lambda: _campaign(torch, bt, pack, obs, dev, torch.float32))
     launches, routes = bt.launch_counts(), bt.route_counts()
-    n_leaves = -(-T_SSP_M // lb.DEFAULT_BLOCK)  # the blocked NLML's leaves: 9 at T = 1032
     n_chunks = -(-pack.uh.shape[0] // HIST_CHUNK)
+    # The blocked NLML's leaves: 9 at T = 1032 (padded to 1152), 16 at T =
+    # 1980 (padded to 2048).
+    n_leaves = -(-T_SSP_M // lb.DEFAULT_BLOCK) + n_chunks * -(-T_HIST_M // lb.DEFAULT_BLOCK)
     expected = {"dba_update": 0, "dba_update_split": 2 * 10, "chol_solve": 0,
                 "tri_inv": n_leaves * MONTHLY_NITS, "chol": n_leaves * MONTHLY_NITS, "dtw_cost": 0,
                 "solve_vec": 0}
-    # One blocked NLML per SSP fit step; on the library route, a factorisation
-    # and a triangular inverse per historical fit step and per posterior.
-    expected_routes = {"kernel": 0, "blocked": MONTHLY_NITS,
-                       "library": n_chunks * (2 * MONTHLY_NITS + 2) + 2}
+    # One blocked NLML per step of the SSP fit and of each historical chunk's
+    # (B = 28); on the library route, a factorisation and a triangular
+    # inverse per posterior.
+    expected_routes = {"kernel": 0, "blocked": (1 + n_chunks) * MONTHLY_NITS,
+                       "library": 2 * n_chunks + 2}
     log(f"[monthly] f32 on the card: {dt:.2f} s; launches {launches} (expected {expected}); "
         f"routes {routes} (expected {expected_routes})")
     wsum = w.double().sum(dim=1)

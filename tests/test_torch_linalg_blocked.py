@@ -176,13 +176,16 @@ def test_chol_non_pd_gives_nan_in_its_slot_only():
     [
         (165, None, torch.float32, "kernel"),  # annual historical
         (86, 112, torch.float32, "kernel"),  # annual SSP batch
-        (239, 64, torch.float32, "kernel"),  # the float32 cap
-        (240, 64, torch.float32, "blocked"),
+        (239, 28, torch.float32, "kernel"),  # the float32 cap
+        (240, 28, torch.float32, "blocked"),
+        (240, 4, torch.float32, "library"),  # the examples' fits: B below BLOCKED_MIN_BATCH
         (1032, 65, torch.float32, "blocked"),  # monthly SSP fit
-        (1032, 63, torch.float32, "library"),  # batch below BLOCKED_MIN_BATCH
-        (1536, 64, torch.float32, "blocked"),  # BLOCKED_T_CAP
-        (1537, 64, torch.float32, "library"),
-        (1980, 28, torch.float32, "library"),  # monthly historical chunk
+        (1032, 27, torch.float32, "library"),  # batch below BLOCKED_MIN_BATCH
+        (1980, 28, torch.float32, "blocked"),  # monthly historical chunk: BLOCKED_MIN_BATCH
+        (1980, 27, torch.float32, "library"),
+        (1980, 16, torch.float32, "library"),  # the library API's batches, B <= 16
+        (3012, 28, torch.float32, "blocked"),  # BLOCKED_T_CAP: 1850-2100 monthly
+        (3013, 28, torch.float32, "library"),
         (1032, None, torch.float32, "library"),  # the posterior: never blocked
         (1032, 65, torch.float64, "library"),  # the f32-only rule
         (167, None, torch.float64, "kernel"),
@@ -199,8 +202,11 @@ def test_linalg_path_routes(t, b, dtype, route):
     assert route_counts() == {"kernel": 0, "blocked": 0, "library": 0}
 
 
-def test_linalg_path_constants_match_jax_and_warn_once(monkeypatch):
-    assert (tlc.BLOCKED_T_CAP, tlc.BLOCKED_MIN_BATCH) == (jlp.BLOCKED_T_CAP, jlp.BLOCKED_MIN_BATCH)
+def test_linalg_path_constants_are_the_h100_gates_and_warn_once(monkeypatch):
+    # The blocked route's gates as measured on the H100 (PERF.md section 6),
+    # not the JAX package's TPU values; the leaf size stays the JAX package's.
+    assert (tlc.BLOCKED_T_CAP, tlc.BLOCKED_MIN_BATCH) == (3012, 28)
+    assert (jlp.BLOCKED_T_CAP, jlp.BLOCKED_MIN_BATCH) == (1536, 64)
     assert tlb.DEFAULT_BLOCK == jlb.DEFAULT_BLOCK
     # The caps are the launchers' shared-memory sizes at the H100's limit.
     for dtype, cap in tlc.KERNEL_T_CAP.items():
@@ -214,6 +220,31 @@ def test_linalg_path_constants_match_jax_and_warn_once(monkeypatch):
     with warnings.catch_warnings():
         warnings.simplefilter("error")
         tlc.linalg_path(1000, b=100)  # the same (T, route): no second warning
+
+
+@pytest.mark.filterwarnings("ignore:batched linalg")
+def test_blocked_nlml_matches_the_library_route_past_the_old_cap():
+    """Past T = 1536, the JAX package's cap, where the port's blocked route
+    still runs (the monthly historical fit, T = 1980): the blocked NLML's
+    value and custom gradient equal ``nlml_terms`` on the library route
+    (``torch.linalg``) in float64, at B = 3 and T = 1600 (padded to 13
+    leaves of 128)."""
+    rng = np.random.default_rng(1600)
+    b, t = 3, 1600
+    k = make_spd(rng, b, t)
+    y = rng.normal(size=(b, t))
+    cq, cl = _loss_weights(rng, b)
+    assert tlc.linalg_path(t, dtype=torch.float64) == "library"
+    got, want = [], []
+    for nlml, out in ((tlb.nlml_terms_blocked, got), (tlc.nlml_terms, want)):
+        tk = torch.from_numpy(k.copy()).requires_grad_(True)
+        q, ld = nlml(tk, torch.from_numpy(y))
+        loss = torch.sum(torch.from_numpy(cq) * q + torch.from_numpy(cl) * ld)
+        (g_k,) = torch.autograd.grad(loss, (tk,))
+        out.extend([q.detach().numpy(), ld.detach().numpy(), g_k.numpy()])
+    close(got[0], want[0])
+    close(got[1], want[1])
+    close(got[2], want[2], GTOL)
 
 
 @pytest.mark.filterwarnings("ignore:batched linalg")

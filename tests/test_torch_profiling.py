@@ -196,7 +196,8 @@ def test_the_campaign_step_counts_its_unique_fits_and_chunks():
 @pytest.mark.parametrize("dtype, b, t, fine", [
     (torch.float64, 4, 48, "kernel"),
     (torch.float64, 4, 170, "library"),  # past float64's kernel cap of 168
-    (torch.float32, 64, 241, "blocked"),  # float32, B >= 64, 239 < T <= 1536
+    (torch.float32, 64, 241, "blocked"),  # float32, B >= 28, 239 < T <= 3012
+    (torch.float32, 28, 241, "blocked"),  # BLOCKED_MIN_BATCH: the monthly historical chunk's batch
 ])
 def test_every_fit_loop_carries_the_route_its_step_takes(dtype, b, t, fine):
     """A coarse-to-fine fit: the coarse loop (T / 12) on the kernels, the
