@@ -201,3 +201,47 @@ def test_run_dedup_campaign_weight_kinds_match_jax(weight_kind):
                                        dtype=torch.float64, **FIT_KW)
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0, atol=TOL)
+
+
+# The first 16 hex digits of the SHA-256 of each array ``chip_smoke.py`` feeds
+# its phases (dtype and shape hashed with the bytes), as the script's own
+# generators ``synthetic_flagship`` / ``synthetic_monthly`` gave them before
+# it took its inputs from the benchmark's generators: the annual float64
+# blocks and masks, and the monthly float32 pack and float64 members.
+CHIP_SMOKE_INPUTS = {
+    ("annual", 0): dict(hb="0c7a09a2839be7b2", hm="1fea49d922074f3e", sb="6de138f007322644",
+                        sm="1fea49d922074f3e", obs="9a83c62226673a43", mm="81039e895559d79c"),
+    ("annual", 7): dict(hb="7d1b78ccc67237d1", hm="eff50d1a8afcab84", sb="91ebcec858d73f70",
+                        sm="eff50d1a8afcab84", obs="096a260af28565f8", mm="015a56b9835e9dab"),
+    ("monthly", 0): dict(hb="5161ad714b07e9d5", hm="19a87085b4a8affa", sb="bfb755910af39995",
+                         sm="19a87085b4a8affa", mmask="b00683d9b2d64779", uh="38ef6b5674c406d0",
+                         um="0362b73d3d6873cf", usb="f9f03efc9b4f205a", usm="1fd0e6691928109e",
+                         uidx="e08d5e58ebe92783", sidx="9038261a404950ed", obs="d245c89bae36dfaa"),
+    ("monthly", 7): dict(hb="aea2c340069350c2", hm="94c35ac723a72f38", sb="29d6a7cc958645e7",
+                         sm="94c35ac723a72f38", mmask="b00683d9b2d64779", uh="fdd0fd3cc3643ba1",
+                         um="0f6026ee6fdfb3ae", usb="e99beb387491d0e3", usm="d61afb83f700b7ae",
+                         uidx="4628691d065b9e01", sidx="9038261a404950ed", obs="5d3609f4d5c28045"),
+}
+
+
+@pytest.mark.parametrize("kind,seed", sorted(CHIP_SMOKE_INPUTS))
+def test_chip_smoke_inputs_are_the_parents(kind, seed):
+    import hashlib
+    import os
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    import chip_smoke
+
+    def digest(a):
+        a = np.ascontiguousarray(a)
+        return hashlib.sha256(f"{a.dtype.str}{a.shape}".encode() + a.tobytes()).hexdigest()[:16]
+
+    if kind == "annual":
+        arrays = dict(zip(("hb", "hm", "sb", "sm", "obs", "mm"), chip_smoke.synthetic_flagship(seed)))
+    else:
+        pack, obs = chip_smoke.monthly_campaign(seed)
+        arrays = dict({k: getattr(pack, k) for k in FIELDS}, obs=obs)
+    assert {k: digest(a) for k, a in arrays.items()} == CHIP_SMOKE_INPUTS[kind, seed]

@@ -277,18 +277,6 @@ def _bench_modules():
     return chip_smoke, gridded_common, gridded_bench
 
 
-@pytest.mark.parametrize("cells", [[0], [0, 1, 63], [2591, 5, 1000], list(range(70))])
-def test_chip_smoke_workload_is_the_gridded_bench_workload(cells):
-    chip_smoke, gridded_common, _ = _bench_modules()
-    assert (chip_smoke.GRID_M, chip_smoke.GRID_R, chip_smoke.GRID_T, chip_smoke.GRID_R_OBS,
-            chip_smoke.GRID_SEED) == (gridded_common.M, gridded_common.R, gridded_common.T,
-                                      gridded_common.R_OBS, gridded_common.SEED)
-    for got, want in zip(chip_smoke.make_workload_cells(cells),
-                         gridded_common.make_workload_cells(cells)):
-        assert got.dtype == want.dtype
-        np.testing.assert_array_equal(got, want)
-
-
 @pytest.mark.parametrize("config", [
     dict(n_iters=30, optimizer="bfgs", warm_stride=0, fine_nits=None, lat=36, lon=72),
     dict(n_iters=500, warm_stride=0, fine_nits=None, lat=36, lon=72),

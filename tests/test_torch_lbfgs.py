@@ -746,29 +746,22 @@ def test_chip_smoke_phases_13_and_14_rehearsed_on_the_cpu(monkeypatch, capsys):
     """``chip_smoke.py``'s phases 13 and 14 at a tiny size with the plain
     versions: the CPU has no launch counters, so the launch checks are
     replaced; the route counts still follow ``lbfgs_expected_launches``."""
-    import time
-
     import bayesian_ensembling_tpu_torch as bt
     import chip_smoke as cs
 
-    def wall(torch_, fn):
-        t0 = time.perf_counter()
-        out = fn()
-        return time.perf_counter() - t0, out
-
     routes = []
-    monkeypatch.setattr(cs, "_wall", wall)
     monkeypatch.setattr(cs, "_counts_match",
                         lambda got, want: routes.append((got, want)) or True)
     monkeypatch.setattr(cs, "_launched", lambda counts, names: True)
-    inputs = cs.synthetic_flagship(0, s=2, m=4, r=3, t_hist=20, t_ssp=10, r_obs=5)
+    inputs = cs.synthetic_flagship(0, scenarios=2, models=4, min_real_models=3, realisations=3,
+                                   t_hist=20, t_ssp=10, obs_members=5)
     report = {}
     cpu = torch.device("cpu")
-    assert cs.run_lbfgs(torch, bt, inputs, cpu, report, None, nits=8, check_nits=5)
-    assert cs.run_examples(torch, bt, cpu, report)
+    assert cs.run_lbfgs(torch, bt, inputs, cpu, report, nits=8, check_nits=5)
+    assert cs.run_examples(bt, cpu, report)
     out = capsys.readouterr().out
     assert "line-search steps per step equal at every step: True" in out
-    assert "[examples] phase 14" in out and "gridded_refined" in out
+    assert "[examples] gridded_refined:" in out
     (_, _), (got_routes, want_routes) = routes
     assert got_routes == want_routes  # kernel-route count = 2 x evaluations + steps + posteriors
-    assert set(report) == {"lbfgs_launches", "examples_launches"}
+    assert set(report["launches"]) == {"lbfgs", "examples"}

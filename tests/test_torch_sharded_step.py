@@ -346,13 +346,13 @@ def test_chip_smoke_phase12_rehearsed_on_the_cpu(monkeypatch):
     import bayesian_ensembling_tpu_torch as bt
 
     for name, value in dict(PARITY_NITS=3, MONTHLY_NITS=3, GRID_NITS=3, HIST_CHUNK=2,
-                            T_HIST_M=20, T_SSP_M=10, N_HIST_MODELS=5, SSP_MODELS=(3, 2),
-                            GRID_M=2, GRID_LAT=2, GRID_LON=3, GRID_R=3, GRID_T=10,
-                            GRID_R_OBS=4).items():
+                            GRID_LAT=2, GRID_LON=3).items():
         monkeypatch.setattr(cs, name, value)
-    monkeypatch.setattr(cs, "_wall", lambda torch_, fn: (0.0, fn()))
+    for name, value in dict(M=2, R=3, T=10, R_OBS=4).items():
+        monkeypatch.setattr(cs._gridded_common(), name, value)
     cpu = torch.device("cpu")
-    inputs = cs.synthetic_flagship(0, s=2, m=4, r=3, t_hist=16, t_ssp=8, r_obs=5)
+    inputs = cs.synthetic_flagship(0, scenarios=2, models=4, min_real_models=3, realisations=3,
+                                   t_hist=16, t_ssp=8, obs_members=5)
 
     def counted(fn):
         bt.reset_launch_counts()
@@ -362,11 +362,11 @@ def test_chip_smoke_phase12_rehearsed_on_the_cpu(monkeypatch):
     out, launches, routes = counted(lambda: cs.run_slice(torch, bt, inputs, cpu, torch.float32,
                                                          cs.PARITY_NITS))
     annual = dict(out=out, launches=launches, routes=routes)
-    scenarios, obs = cs.synthetic_monthly(0, r=4, r_obs=5)
-    pack = bt.pack_dedup_campaign(scenarios)
-    out, launches, routes = counted(lambda: cs._campaign(torch, bt, pack, obs, cpu, torch.float32))
+    pack, obs = cs.monthly_campaign(0, scenarios=2, hist_models=5, ssp_models=[3, 2], models=3,
+                                    realisations=4, t_hist=20, t_ssp=10, obs_members=5)
+    out, launches, routes = counted(lambda: cs._campaign(bt, pack, obs, cpu, torch.float32))
     report = {"monthly_f32": dict(pack=pack, obs=obs, out=out, launches=launches, routes=routes)}
-    block, gobs = cs.make_workload_cells(np.arange(cs.GRID_LAT * cs.GRID_LON))
+    block, gobs = cs._gridded_common().make_workload_cells(np.arange(cs.GRID_LAT * cs.GRID_LON))
     blk, ob = torch.from_numpy(block), torch.from_numpy(gobs)
     mk = torch.ones(blk.shape[:3], dtype=torch.bool)
     out, launches, routes = counted(lambda: bt.gridded_ensemble_step(
@@ -374,5 +374,6 @@ def test_chip_smoke_phase12_rehearsed_on_the_cpu(monkeypatch):
     report["gridded_f32"] = dict(blk=blk, ob=ob, mk=mk, out=out[:3], launches=launches,
                                  routes=routes)
     assert cs.run_sharded(torch, bt, cpu, inputs, annual, report, backend="gloo")
-    assert set(report["sharded_launches"]) == set(bt.launch_counts())
+    assert set(report) == {"launches"}  # both earlier runs taken up
+    assert set(report["launches"]["sharded"]) == set(bt.launch_counts())
     assert not torch.distributed.is_initialized()

@@ -349,7 +349,8 @@ def test_chip_smoke_validation_on_tiny_library_collections():
     under the campaign bucket against float64 at the same posteriors, and
     the fold loop against the batched function."""
     cs = _chip_smoke()
-    inputs = cs.synthetic_flagship(0, s=2, m=4, r=4, t_hist=12, t_ssp=8, r_obs=6)
+    inputs = cs.synthetic_flagship(0, scenarios=2, models=4, min_real_models=3, realisations=4,
+                                   t_hist=12, t_ssp=8, obs_members=6)
     built, obs = cs.library_scenarios(tbet, inputs)
     hist, ssp = built[0]
     for mc in (hist, ssp):
@@ -371,7 +372,8 @@ def test_chip_smoke_serving_helpers(tmp_path):
     HTTP round trip and the gridded artifact against the posterior it was
     built from."""
     cs = _chip_smoke()
-    inputs = cs.synthetic_flagship(1, s=2, m=3, r=3, t_hist=10, t_ssp=6, r_obs=4)
+    inputs = cs.synthetic_flagship(1, scenarios=2, models=3, min_real_models=2, realisations=3,
+                                   t_hist=10, t_ssp=6, obs_members=4)
     built, obs = cs.library_scenarios(tbet, inputs)
     results = {f"s{i}": tbet.run_scenario(h, s, obs, f"s{i}", emulator=tbet.MeanField(),
                                           device="cpu")
