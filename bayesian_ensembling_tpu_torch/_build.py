@@ -37,8 +37,9 @@ NVCC_FLAGS = (
 # route is chosen by shape and dtype alone, the same on every device.
 SMEM_BYTES = 232_448
 
-# C entry points: name -> (number of pointer arguments, number of int arguments).
-# Every entry point ends with the stream pointer.
+# C entry points: name -> (number of pointer arguments, number of int
+# arguments[, number of double arguments]), in that order.  Every entry point
+# ends with the stream pointer.
 _SIGNATURES = {
     "bet_dba_update_f32": (4, 4),
     "bet_dba_update_f64": (4, 4),
@@ -54,12 +55,16 @@ _SIGNATURES = {
     "bet_dtw_cost_f64": (3, 4),
     "bet_solve_vec_f32": (5, 3),
     "bet_solve_vec_f64": (5, 3),
+    "bet_gram_matern32_f32": (5, 3, 1),
+    "bet_gram_matern32_f64": (5, 3, 1),
+    "bet_gram_matern32_grad_f32": (10, 3),
+    "bet_gram_matern32_grad_f64": (10, 3),
 }
 
 # Launches per kernel since the last reset: each wrapper adds one where it
 # launches its kernel, and nowhere else.
 LAUNCHES = {"dba_update": 0, "dba_update_split": 0, "chol_solve": 0, "tri_inv": 0, "chol": 0,
-            "dtw_cost": 0, "solve_vec": 0}
+            "dtw_cost": 0, "solve_vec": 0, "gram_matern32": 0, "gram_matern32_grad": 0}
 
 # Batched-linalg calls since the last reset, by the route they took: the
 # kernels or torch.linalg (one per routed call in ops/linalg_cuda.py), or
@@ -132,9 +137,10 @@ def library() -> ctypes.CDLL:
         if not so.exists():
             log = _compile(cu, so)
         lib = ctypes.CDLL(str(so))
-        for name, (n_ptr, n_int) in _SIGNATURES.items():
+        for name, (n_ptr, n_int, *n_double) in _SIGNATURES.items():
             fn = getattr(lib, name)
-            fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
+            fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+                           + [ctypes.c_double] * sum(n_double) + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
         lib.bet_error_string.argtypes = [ctypes.c_int]
         lib.bet_error_string.restype = ctypes.c_char_p

@@ -34,9 +34,10 @@ from torch import nn
 
 from bayesian_ensembling_tpu_torch import _build
 from bayesian_ensembling_tpu_torch.ops import dtw as dtw_ops
+from bayesian_ensembling_tpu_torch.ops import gram as gram_ops
 from bayesian_ensembling_tpu_torch.ops import lbfgs as lbfgs_ops
 from bayesian_ensembling_tpu_torch.ops import linalg_cuda
-from bayesian_ensembling_tpu_torch.ops.linalg_blocked import nlml_terms_blocked
+from bayesian_ensembling_tpu_torch.ops.linalg_blocked import nlml_route
 from bayesian_ensembling_tpu_torch.utils.profiling import span
 
 __all__ = [
@@ -63,7 +64,6 @@ __all__ = [
 ]
 
 _LOG_2PI = 1.8378770664093453
-_SQRT3 = 1.7320508075688772
 
 # Optimiser steps of the batched fit since the last reset (the package's
 # ``reset_launch_counts``), by optimiser: ``fit_gp_batch_segment`` adds each
@@ -194,8 +194,7 @@ def _sq_dists(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
 
 
 def _matern32_from_dist(params: BatchedGPParams, dist: torch.Tensor) -> torch.Tensor:
-    r = dist / params.lengthscale[:, None, None]
-    return params.variance[:, None, None] * (1.0 + _SQRT3 * r) * torch.exp(-_SQRT3 * r)
+    return gram_ops.matern32_from_dist(params.lengthscale, params.variance, dist)
 
 
 def _rbf_from_sqdist(params: BatchedGPParams, d2: torch.Tensor) -> torch.Tensor:
@@ -379,20 +378,33 @@ def _build_batch_step(x, y, noise_var, kernel_name, jitter, optimizer, route=Non
     one.  ``route``, ``linalg_cuda.linalg_path(T, b=M, dtype)`` unless the
     caller has it, picks the NLML once, as the JAX package does: the
     recursive blocked NLML on the blocked route, else
-    ``linalg_cuda.nlml_terms``.
+    ``linalg_cuda.nlml_terms``.  On a card the Matern-3/2 NLML runs on the
+    Gram kernels (``ops/gram.matern32_nlml_terms``: the Gram and the
+    contraction of its gradient as two launches); elsewhere, and for
+    ``"rbf"``, autograd runs the kernel's elementwise chain.
     """
     m, t, _ = x.shape
     precompute, apply_fn = get_kernel_precomputed(kernel_name)
     stat = precompute(x, x)  # hyperparameter-independent: hoisted out of the loop
-    diag_noise = torch.diag_embed(noise_var)
-    jitter_eye = jitter * torch.eye(t, dtype=y.dtype, device=y.device)
     if route is None:
         route = linalg_cuda.linalg_path(t, b=m, dtype=y.dtype)
-    nlml = nlml_terms_blocked if route == "blocked" else linalg_cuda.nlml_terms
+    if kernel_name == "matern32" and y.device.type == "cuda":
+        noise_var = noise_var.contiguous()
+
+        def nlml_terms(params):
+            return gram_ops.matern32_nlml_terms(stat, params.lengthscale, params.variance,
+                                                noise_var, y, jitter, route)
+    else:
+        diag_noise = torch.diag_embed(noise_var)
+        jitter_eye = jitter * torch.eye(t, dtype=y.dtype, device=y.device)
+        forward, kinv = nlml_route(route)
+
+        def nlml_terms(params):
+            return linalg_cuda.nlml_terms_on(apply_fn(params, stat) + diag_noise + jitter_eye, y,
+                                             forward, kinv)
 
     def nlml_vec(params):
-        ky = apply_fn(params, stat) + diag_noise + jitter_eye
-        quad, logdet = nlml(ky, y)
+        quad, logdet = nlml_terms(params)
         return 0.5 * (quad + logdet + t * _LOG_2PI)
 
     def value_and_grad(params):

@@ -25,14 +25,16 @@ Layout: ``(B, T, T)`` batch-major throughout.
 
 from __future__ import annotations
 
+import functools
 import typing as tp
 
 import torch
 
 from bayesian_ensembling_tpu_torch import _build
+from bayesian_ensembling_tpu_torch.ops import linalg_cuda
 from bayesian_ensembling_tpu_torch.ops.linalg_cuda import chol, tri_inv
 
-__all__ = ["DEFAULT_BLOCK", "nlml_terms_blocked"]
+__all__ = ["DEFAULT_BLOCK", "nlml_route", "nlml_terms_blocked"]
 
 # 128: the JAX package's block, which also keeps the diagonal blocks well
 # inside the kernels' shared-memory cap (68 KB per block at T = 128 in f32).
@@ -99,31 +101,35 @@ def _rec_inv_logdiag(a: torch.Tensor, nb: int) -> tp.Tuple[torch.Tensor, torch.T
     return w, sa + sc
 
 
-class _NLMLTermsBlocked(torch.autograd.Function):
-    """(quad, logdet) through the recursion, with the custom gradient of
-    ``linalg_cuda.nlml_terms``: d quad / dK = -alpha alpha^T and
-    d logdet / dK = K^-1 = W^T W, reusing the forward's W."""
+def nlml_forward_blocked(ky: torch.Tensor, y: torch.Tensor, nb: int = DEFAULT_BLOCK):
+    """The blocked route's NLML forward: ``(quad, logdet, W, alpha)``, with
+    W = L^-1 of the unpadded matrix, what the backward needs
+    (:func:`nlml_kinv_blocked`).  Counts one ``"blocked"`` route in
+    ``_build.ROUTES``, as ``linalg_cuda._routed`` counts the other two."""
+    _build.ROUTES["blocked"] += 1
+    a, t = _pad_to_block(ky, nb)
+    w, sumlog = _rec_inv_logdiag(a, nb)
+    # The identity tail adds 0 to the log-diagonal and an identity block
+    # to W; the padded y entries are 0, so z and alpha stay 0 there.
+    yb = torch.nn.functional.pad(y, (0, a.shape[-1] - t))
+    z = torch.einsum("bij,bj->bi", w, yb)
+    alpha = torch.einsum("bji,bj->bi", w, z)[:, :t]
+    return torch.sum(z * z, dim=-1), 2.0 * sumlog, w[:, :t, :t], alpha
 
-    @staticmethod
-    def forward(ctx, ky, y, nb):
-        a, t = _pad_to_block(ky, nb)
-        w, sumlog = _rec_inv_logdiag(a, nb)
-        # The identity tail adds 0 to the log-diagonal and an identity block
-        # to W; the padded y entries are 0, so z and alpha stay 0 there.
-        yb = torch.nn.functional.pad(y, (0, a.shape[-1] - t))
-        z = torch.einsum("bij,bj->bi", w, yb)
-        alpha = torch.einsum("bji,bj->bi", w, z)[:, :t]
-        ctx.save_for_backward(w[:, :t, :t], alpha)
-        return torch.sum(z * z, dim=-1), 2.0 * sumlog
 
-    @staticmethod
-    def backward(ctx, g_quad, g_logdet):
-        w, alpha = ctx.saved_tensors
-        kinv = torch.matmul(w.mT, w)
-        outer = alpha[:, :, None] * alpha[:, None, :]
-        g_ky = g_logdet[:, None, None] * kinv - g_quad[:, None, None] * outer
-        g_y = 2.0 * g_quad[:, None] * alpha if ctx.needs_input_grad[1] else None
-        return g_ky, g_y, None
+def nlml_kinv_blocked(w: torch.Tensor) -> torch.Tensor:
+    """K^-1 = W^T W from the forward's W, with no new factorisation."""
+    return torch.matmul(w.mT, w)
+
+
+def nlml_route(route: str):
+    """``(forward, kinv)`` of the NLML on ``route`` (``linalg_cuda.linalg_path``'s
+    answer): the recursion's on ``"blocked"``, else ``linalg_cuda``'s (the
+    Cholesky-solve kernel, or torch.linalg past its cap).  Every NLML of the
+    fit, on the chain or on the Gram kernels, takes its route from here."""
+    if route == "blocked":
+        return nlml_forward_blocked, nlml_kinv_blocked
+    return linalg_cuda.nlml_forward, linalg_cuda.nlml_kinv
 
 
 def nlml_terms_blocked(
@@ -141,5 +147,5 @@ def nlml_terms_blocked(
       custom gradient as ``nlml_terms``.  Each call counts one ``"blocked"``
       route in ``_build.ROUTES``.
     """
-    _build.ROUTES["blocked"] += 1
-    return _NLMLTermsBlocked.apply(ky, y, DEFAULT_BLOCK if nb is None else nb)
+    forward = functools.partial(nlml_forward_blocked, nb=DEFAULT_BLOCK if nb is None else nb)
+    return linalg_cuda.nlml_terms_on(ky, y, forward, nlml_kinv_blocked)

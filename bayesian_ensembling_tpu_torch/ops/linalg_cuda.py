@@ -447,27 +447,62 @@ def tri_inv_batched(lt: torch.Tensor) -> torch.Tensor:
     return tri_inv_routed(lt.permute(2, 1, 0).contiguous()).permute(1, 2, 0)
 
 
+def nlml_forward(ky: torch.Tensor, y: torch.Tensor):
+    """The kernel and library routes' NLML forward: ``(quad, logdet, L,
+    alpha)``, with L what the backward needs (:func:`nlml_kinv`)."""
+    l, z, alpha, logdet = chol_solve_routed(ky, y)
+    return torch.sum(z * z, dim=-1), logdet, l, alpha
+
+
+def nlml_kinv(l: torch.Tensor) -> torch.Tensor:
+    """K^-1 = W^T W from the forward's factor, W = L^-1 by the routed
+    triangular inverse.  Full float32 on the card (allow_tf32 is False by
+    default); the TPU ran this product at Precision.DEFAULT."""
+    w = tri_inv_routed(l)
+    return torch.matmul(w.mT, w)
+
+
+def nlml_g_ky(kinv: torch.Tensor, alpha: torch.Tensor, g_quad: torch.Tensor,
+              g_logdet: torch.Tensor) -> torch.Tensor:
+    """The gradient of ``g_quad quad + g_logdet logdet`` with respect to K,
+    the JAX package's custom gradient: d quad / dK = -alpha alpha^T and
+    d logdet / dK = K^-1.  Every route's backward takes it from here; the
+    Gram kernel's contraction (``csrc/gram_matern32.cu``) sums it without
+    storing it."""
+    outer = alpha[:, :, None] * alpha[:, None, :]
+    return g_logdet[:, None, None] * kinv - g_quad[:, None, None] * outer
+
+
+def nlml_g_y(alpha: torch.Tensor, g_quad: torch.Tensor) -> torch.Tensor:
+    """d quad / dy = 2 alpha, times ``g_quad``."""
+    return 2.0 * g_quad[:, None] * alpha
+
+
 class _NLMLTerms(torch.autograd.Function):
     """(quad, logdet) with the custom gradient of the JAX package:
-    d quad / dK = -alpha alpha^T and d logdet / dK = K^-1 = W^T W."""
+    d quad / dK = -alpha alpha^T and d logdet / dK = K^-1 = W^T W, on the
+    route whose ``forward`` and ``kinv`` it is given (the pair
+    ``linalg_blocked.nlml_route`` names)."""
 
     @staticmethod
-    def forward(ctx, ky, y):
-        l, z, alpha, logdet = chol_solve_routed(ky, y)
-        ctx.save_for_backward(l, alpha)
-        return torch.sum(z * z, dim=-1), logdet
+    def forward(ctx, ky, y, forward, kinv):
+        quad, logdet, factor, alpha = forward(ky, y)
+        ctx.kinv = kinv
+        ctx.save_for_backward(factor, alpha)
+        return quad, logdet
 
     @staticmethod
     def backward(ctx, g_quad, g_logdet):
-        l, alpha = ctx.saved_tensors
-        w = tri_inv_routed(l)
-        # Full float32 on the card (allow_tf32 is False by default); the TPU
-        # ran this product at Precision.DEFAULT.
-        kinv = torch.matmul(w.mT, w)
-        outer = alpha[:, :, None] * alpha[:, None, :]
-        g_ky = g_logdet[:, None, None] * kinv - g_quad[:, None, None] * outer
-        g_y = 2.0 * g_quad[:, None] * alpha if ctx.needs_input_grad[1] else None
-        return g_ky, g_y
+        factor, alpha = ctx.saved_tensors
+        g_ky = nlml_g_ky(ctx.kinv(factor), alpha, g_quad, g_logdet)
+        return g_ky, nlml_g_y(alpha, g_quad) if ctx.needs_input_grad[1] else None, None, None
+
+
+def nlml_terms_on(ky: torch.Tensor, y: torch.Tensor, forward, kinv):
+    """(quad, logdet) of :func:`nlml_terms` through a route's ``forward``
+    (``(quad, logdet, factor, alpha)`` of ``(ky, y)``) and ``kinv`` (K^-1 of
+    that factor)."""
+    return _NLMLTerms.apply(ky, y, forward, kinv)
 
 
 def nlml_terms(ky: torch.Tensor, y: torch.Tensor) -> tp.Tuple[torch.Tensor, torch.Tensor]:
@@ -483,4 +518,4 @@ def nlml_terms(ky: torch.Tensor, y: torch.Tensor) -> tp.Tuple[torch.Tensor, torc
       backward pass the triangular-inverse kernel and K^-1 = W^T W; beyond
       it torch.linalg does both factorisations, with the same gradient.
     """
-    return _NLMLTerms.apply(ky, y)
+    return nlml_terms_on(ky, y, nlml_forward, nlml_kinv)

@@ -363,7 +363,7 @@ def run_monthly(torch, bt, dev, seed, report):
     n_leaves = -(-t_ssp // lb.DEFAULT_BLOCK) + n_chunks * -(-t_hist // lb.DEFAULT_BLOCK)
     expected = {"dba_update": 0, "dba_update_split": 2 * 10, "chol_solve": 0,
                 "tri_inv": n_leaves * MONTHLY_NITS, "chol": n_leaves * MONTHLY_NITS, "dtw_cost": 0,
-                "solve_vec": 0}
+                "solve_vec": 0, **gram_launches((1 + n_chunks) * MONTHLY_NITS)}
     # One blocked NLML per step of the SSP fit and of each historical chunk's
     # (B = 28); on the library route, a factorisation and a triangular
     # inverse per posterior.
@@ -512,7 +512,8 @@ def run_subgradient(torch, bt, inputs, dev, report):
     n_epochs = epochs["hist", torch.float32] + epochs["ssp", torch.float32]
     r = inputs[0].shape[2]
     expected = {"dba_update": r * n_epochs, "dba_update_split": 0, "chol_solve": 2 * (PARITY_NITS + 1),
-                "tri_inv": 2 * (PARITY_NITS + 1), "chol": 0, "dtw_cost": n_epochs, "solve_vec": 0}
+                "tri_inv": 2 * (PARITY_NITS + 1), "chol": 0, "dtw_cost": n_epochs, "solve_vec": 0,
+                **gram_launches(2 * PARITY_NITS)}
     log(f"[subgradient] step f32 on the card, {PARITY_NITS} Adam steps: launches {launches} "
         f"(expected {expected})")
     _tally(report, "subgradient", launches)
@@ -728,7 +729,8 @@ def run_library(torch, bt, inputs, dev, step_out, report, nits=LIBRARY_NITS):
     ok = True
     totals = dict.fromkeys(bt.launch_counts(), 0)
     expected = {"dba_update": 2 * 10, "dba_update_split": 0, "chol_solve": 2 * (nits + 1),
-                "tri_inv": 2 * nits, "chol": 1, "dtw_cost": 0, "solve_vec": 2}
+                "tri_inv": 2 * nits, "chol": 1, "dtw_cost": 0, "solve_vec": 2,
+                **gram_launches(2 * nits)}
     # Per collection a Cholesky-solve and a triangular inverse per Adam step
     # and a Cholesky-solve for the posterior; one Cholesky of the weighter.
     expected_routes = {"kernel": 2 * (2 * nits + 1) + 1, "blocked": 0, "library": 0}
@@ -905,7 +907,8 @@ def run_gridded(torch, bt, dev, report):
     out = bt.gridded_ensemble_step(blk, ob, mk, n_optim_nits=GRID_NITS, return_fit=True, **GRID_KW)
     launches, routes = bt.launch_counts(), bt.route_counts()
     expected = {"dba_update": 10, "dba_update_split": 0, "chol_solve": 2 * GRID_NITS + 1,
-                "tri_inv": GRID_NITS + 1, "chol": 0, "dtw_cost": 0, "solve_vec": 0}
+                "tri_inv": GRID_NITS + 1, "chol": 0, "dtw_cost": 0, "solve_vec": 0,
+                **gram_launches(2 * GRID_NITS, GRID_NITS)}
     expected_routes = {"kernel": 3 * GRID_NITS + 2, "blocked": 0, "library": 0}
     wsum = out[2].double().sum(dim=0)
     finite = all(bool(torch.isfinite(a).all()) for a in out[:3])
@@ -999,7 +1002,8 @@ def run_gridded_library(torch, bt, dev, block, obs):
     # no weighter to B4 or B5.
     fits = gridded_common.M * (GRID_ADAM_NITS + 1)
     expected = {"dba_update": 10 * gridded_common.M, "dba_update_split": 0, "chol_solve": fits,
-                "tri_inv": fits, "chol": 0, "dtw_cost": 0, "solve_vec": 0}
+                "tri_inv": fits, "chol": 0, "dtw_cost": 0, "solve_vec": 0,
+                **gram_launches(gridded_common.M * GRID_ADAM_NITS)}
     bt.reset_launch_counts()
     w, bary = bt.run_gridded_scenario(bt.ModelCollection(models), observations,
                                       n_optim_nits=GRID_ADAM_NITS, device=dev)
@@ -1091,6 +1095,15 @@ def col_rel_gap(got, want):
     return float((np.abs(got - want) / scale).max())
 
 
+def gram_launches(forwards, backwards=None):
+    """The Gram kernels' launches of Matern-3/2 fits on the card: one build
+    an NLML evaluation of the fit (``forwards``), one contraction a gradient
+    (``backwards``, by default one an evaluation, as an Adam step has).  The
+    posterior keeps PyTorch's chain."""
+    return {"gram_matern32": forwards,
+            "gram_matern32_grad": forwards if backwards is None else backwards}
+
+
 def pmt_launches(kind, n_folds=0, n_models=0):
     """Expected launches of one ``batched_pmt`` call of ``kind`` on
     full-covariance posteriors (the loglik table: one Cholesky of all the
@@ -1099,18 +1112,20 @@ def pmt_launches(kind, n_folds=0, n_models=0):
     fold)."""
     table = 1 if kind == "loglik" else 0
     return {"dba_update": 0, "dba_update_split": 0, "chol_solve": 0, "tri_inv": 0,
-            "chol": table + n_folds, "dtw_cost": 0, "solve_vec": 2 * (table + n_folds)}
+            "chol": table + n_folds, "dtw_cost": 0, "solve_vec": 2 * (table + n_folds),
+            **gram_launches(0)}
 
 
 def fold_fit_launches(n_folds, nits, dba_iterations=10):
     """Expected launches of the fold loop with fresh ``GPDTW1D`` fits: three
     fits a fold (the remaining hindcast models, the remaining forecast
     models, the pseudo truth), each ``dba_iterations`` DBA updates, a
-    Cholesky-solve per Adam step and for the posterior and a triangular
-    inverse per Adam step; then the fold's ``LogLikelihoodWeight``."""
+    Cholesky-solve per Adam step and for the posterior, a triangular
+    inverse and both Gram kernels per Adam step; then the fold's
+    ``LogLikelihoodWeight``."""
     out = pmt_launches("uniform", n_folds=n_folds)
     out.update(dba_update=3 * n_folds * dba_iterations, chol_solve=3 * n_folds * (nits + 1),
-               tri_inv=3 * n_folds * nits)
+               tri_inv=3 * n_folds * nits, **gram_launches(3 * n_folds * nits))
     return out
 
 
@@ -1335,7 +1350,8 @@ def run_validation(torch, bt, dev, inputs, fitted, results, report):
         _tally(report, "serve", launches)
         m, nits = 5, 500  # build_gridded_artifacts' defaults: 5 models, 500 Adam steps
         expected = {"dba_update": 10 * m, "dba_update_split": 0, "chol_solve": m * (nits + 1),
-                    "tri_inv": m * (nits + 1), "chol": 0, "dtw_cost": 0, "solve_vec": 0}
+                    "tri_inv": m * (nits + 1), "chol": 0, "dtw_cost": 0, "solve_vec": 0,
+                    **gram_launches(m * nits)}
         loaded = serve.ProjectionService.load(os.path.join(tmp, "gridded"))
         gap = gridded_serve_gap(loaded, "gridded", rec.posteriors["gridded"])
         log(f"[serve] build_gridded_artifacts (12 x 24 cells, 5 models, 10 realisations, T = 86, "
@@ -1549,11 +1565,12 @@ def lbfgs_expected_launches(evals, nits, n_fits=2, dba_iterations=10):
     """The kernel launches of ``n_fits`` lbfgs fits on the kernel route and
     their posteriors: B2 for every value-and-gradient evaluation, for the
     loss recorded after each step and for the posterior; B3 for every
-    evaluation's backward and the posterior's variance.  ``evals``: the
+    evaluation's backward and the posterior's variance; the Gram build for
+    every evaluation and recorded loss, its contraction for every backward.  ``evals``: the
     line search's evaluations plus the fresh ones (``ops.lbfgs.counts()``)."""
     launches = {"dba_update": n_fits * dba_iterations, "dba_update_split": 0,
                 "chol_solve": evals + n_fits * (nits + 1), "tri_inv": evals + n_fits, "chol": 0,
-                "dtw_cost": 0, "solve_vec": 0}
+                "dtw_cost": 0, "solve_vec": 0, **gram_launches(evals + n_fits * nits, evals)}
     routes = {"kernel": 2 * evals + n_fits * (nits + 2), "blocked": 0, "library": 0}
     return launches, routes
 
@@ -1737,7 +1754,8 @@ def main(argv=None):
     bm, bs, w = run_slice(torch, bt, inputs, dev, torch.float32, PARITY_NITS)
     launches, routes = bt.launch_counts(), bt.route_counts()
     expected = {"dba_update": 2 * 10, "dba_update_split": 0, "chol_solve": 2 * (PARITY_NITS + 1),
-                "tri_inv": 2 * (PARITY_NITS + 1), "chol": 0, "dtw_cost": 0, "solve_vec": 0}
+                "tri_inv": 2 * (PARITY_NITS + 1), "chol": 0, "dtw_cost": 0, "solve_vec": 0,
+                **gram_launches(2 * PARITY_NITS)}
     expected_routes = {"kernel": 4 * (PARITY_NITS + 1), "blocked": 0, "library": 0}
     log(f"[slice] f32 on the card, {PARITY_NITS} Adam steps: launches {launches} (expected "
         f"{expected}); routes {routes} (expected {expected_routes})")

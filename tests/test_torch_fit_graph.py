@@ -156,6 +156,39 @@ def test_a_graphed_fit_counts_what_the_eager_loop_launches(cuda_device):
     assert loop.device_ms is not None and loop.device_ms > 0.0
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("b, t, route", [
+    (112, 165, "kernel"),  # the annual historical fit
+    (64, 250, "blocked"),  # the recursive blocked NLML
+])
+def test_graphed_fit_on_the_gram_kernels_equals_the_eager_loop(cuda_device, b, t, route):
+    """On a card the Matern-3/2 step builds its Gram and contracts its
+    gradient with the Gram kernels (``ops/gram.py``), in the eager loop and
+    in the graph alike, one of each an Adam step; the two agree bit for
+    bit."""
+    x, y, noise = _random_inputs(b, t, torch.float32, cuda_device)
+    assert bt.linalg_path(t, b=b, dtype=torch.float32) == route
+    bt.reset_launch_counts()
+    want = _eager(x, y, noise, 12)
+    eager = bt.launch_counts()
+    assert eager["gram_matern32"] == eager["gram_matern32_grad"] == 12
+    bt.reset_launch_counts()
+    got = gp_ops.fit_gp_batch(x, y, noise, n_optim_nits=12)
+    assert bt.launch_counts() == eager
+    _assert_same_fit(got, (want[0], want[2]))
+
+
+@pytest.mark.gpu
+def test_the_gram_kernels_count_once_a_replay(cuda_device):
+    x, y, noise = _flagship_inputs(86, cuda_device)
+    bt.reset_launch_counts()
+    gp_ops.fit_gp_batch(x, y, noise, n_optim_nits=40)
+    assert bt.fit_replay_counts() == {"adam": 40 - WARMUP}
+    counts = bt.launch_counts()
+    assert counts["gram_matern32"] == counts["gram_matern32_grad"] == 40
+    assert counts["chol_solve"] == counts["tri_inv"] == 40
+
+
 def test_on_the_cpu_no_step_is_replayed():
     x, y, noise = _random_inputs(3, 20, torch.float64, torch.device("cpu"))
     bt.reset_launch_counts()

@@ -11,7 +11,12 @@ bit for bit.  The linear
 algebra runs on Matern-3/2 Grams plus noise (condition number below 1e3);
 float64 agrees to 1e-10 and float32 to 1e-3 of the largest entry.  The
 blocked NLML at the monthly campaign's shapes runs on the campaign's own
-Grams, worse conditioned, at 1e-2.
+Grams, worse conditioned, at 1e-2.  The Matern-3/2 Gram kernel equals
+PyTorch's elementwise chain bit for bit; its gradient's contraction agrees
+with autograd of the chain to 1e-13 in float64, and in float32 with
+float64 to 3e-7, each relative to the sum of the terms' absolute values,
+limits that the same contraction with its terms rounded to float32 (or
+bfloat16) misses.
 """
 
 import numpy as np
@@ -688,3 +693,220 @@ def test_gridded_step_on_the_card_matches_the_cpu(cuda_device):
     assert counts["chol_solve"] == 2 * 6 + 1 and counts["tri_inv"] == 6 + 1
     for g, w_ in zip(got, want):
         np.testing.assert_allclose(g.cpu().numpy(), w_.numpy(), rtol=0, atol=1e-8)
+
+
+# ------------------------------------------------------------- the Gram kernels
+# The annual fits (112, 165) and (112, 86), one gridded model's cells (2,592,
+# 86), chip_smoke.py's gridded batch (12,960, 86) and the gridded cell's
+# (41,472, 86), and the monthly campaign's SSP fit (65, 1032) and historical
+# chunk (28, 1980).
+GRAM_SHAPES = [(112, 165), (112, 86), (2592, 86), (12960, 86), (41472, 86), (65, 1032),
+               (28, 1980)]
+# The contraction's limits by dtype, each a share of a matrix's sum of
+# |terms| (the terms cancel): float64 against autograd of the chain, float32
+# against float64, and the NLML's gradient on the Gram kernels against the
+# chain's.  Each lies between the largest reading of the kernel and the
+# least of a control whose terms are rounded to the next precision below
+# (GRAD_CONTROL), which must miss it: on an H100, float64 2.5e-18-9.4e-17
+# against float32 terms 1.4e-10-3.1e-9; float32 5.5e-10-1.8e-8 against
+# bfloat16 terms 8.1e-6-2.2e-4 (PERF.md section 6, PR 24).
+GRAD_TOL = {torch.float64: 1e-13, torch.float32: 3e-7}
+GRAD_CONTROL = {torch.float64: torch.float32, torch.float32: torch.bfloat16}
+
+
+def _gram_inputs(b, t, dtype, device, seed=0):
+    """The fit's hoisted distances of 3-realisation random walks (built on
+    the card), hyperparameters around the scratch start, noise, and for the
+    contraction a symmetric K^-1, alpha and the two output weights."""
+    from bayesian_ensembling_tpu_torch.ops import gp as gp_ops
+
+    gen = torch.Generator().manual_seed(seed)
+    walk = torch.cumsum(0.1 * torch.randn((b, t, 3), generator=gen, dtype=dtype), dim=1)
+    x = (torch.linspace(0.0, 1.0, t, dtype=dtype)[None, :, None] + walk).to(device)
+    dist = gp_ops.get_kernel_precomputed("matern32")[0](x, x)
+    ls = (0.5 + 1.5 * torch.rand((b,), generator=gen, dtype=dtype)).to(device)
+    var = (0.5 + 1.5 * torch.rand((b,), generator=gen, dtype=dtype)).to(device)
+    noise = (0.01 + 0.2 * torch.rand((b, t), generator=gen, dtype=dtype)).to(device)
+    dev_gen = torch.Generator(device=device).manual_seed(seed)
+    a = torch.randn((b, t, t), generator=dev_gen, dtype=dtype, device=device)
+    kinv = (a + a.mT).mul_(0.5)
+    del a
+    alpha = torch.randn((b, t), generator=gen, dtype=dtype).to(device)
+    g_quad = (0.25 + torch.rand((b,), generator=gen, dtype=dtype)).to(device)
+    g_logdet = (0.25 + torch.rand((b,), generator=gen, dtype=dtype)).to(device)
+    return dist, ls, var, noise, kinv, alpha, g_quad, g_logdet
+
+
+@pytest.mark.parametrize("b,t", GRAM_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_gram_kernel_equals_the_chain_bit_for_bit(cuda_device, b, t, dtype):
+    from bayesian_ensembling_tpu_torch.ops import gram
+
+    dist, ls, var, noise, *_ = _gram_inputs(b, t, dtype, cuda_device)
+    reset_launch_counts()
+    got = gram.gram_matern32(dist, ls, var, noise, 1e-6)
+    assert launch_counts()["gram_matern32"] == 1
+    want = gram.gram_matern32_reference(dist, ls, var, noise, 1e-6)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def _term_scale(kinv, alpha, g_quad, g_logdet, dist, ls, var):
+    """Each matrix's sums of the contraction's terms' absolute values
+    (g_lengthscale's, g_variance's), in float64: the scale of each sum's
+    round-off, since the terms cancel."""
+    from bayesian_ensembling_tpu_torch.ops import gram
+
+    g_ky = tlc.nlml_g_ky(*(a.double() for a in (kinv, alpha, g_quad, g_logdet)))
+    ls, var = ls.double(), var.double()
+    s = gram.SQRT3 * dist.double() / ls[:, None, None]
+    e = torch.exp(-s)
+    return ((g_ky * (s * s * e)).abs().sum(dim=(1, 2)) * var / ls,
+            (g_ky * ((1.0 + s) * e)).abs().sum(dim=(1, 2)))
+
+
+def _terms_rounded_to(dtype, kinv, alpha, g_quad, g_logdet, dist, ls, var):
+    """The control of a contraction that works at lower precision: each term
+    computed in float64 from the inputs, rounded to ``dtype``, and summed in
+    float64."""
+    from bayesian_ensembling_tpu_torch.ops import gram
+
+    g_ky = tlc.nlml_g_ky(*(a.double() for a in (kinv, alpha, g_quad, g_logdet)))
+    ls, var = ls.double(), var.double()
+    s = gram.SQRT3 * dist.double() / ls[:, None, None]
+    e = torch.exp(-s)
+    g_var = (g_ky * ((1.0 + s) * e)).to(dtype).double().sum(dim=(1, 2))
+    g_ls = var / ls * (g_ky * (s * s * e)).to(dtype).double().sum(dim=(1, 2))
+    return g_ls, g_var
+
+
+def _gap(got, want, scale):
+    """The largest gap of (g_lengthscale, g_variance) over the batch, each
+    matrix's a share of its sum of |terms|."""
+    return max(((g.double() - w.double()).abs() / sc).max().item()
+               for g, w, sc in zip(got, want, scale))
+
+
+def _chain_grads(dist, ls, var, noise, kinv, alpha, g_quad, g_logdet):
+    """Autograd of the chain's Gram against the NLML's d/dK."""
+    from bayesian_ensembling_tpu_torch.ops import gram
+
+    g_ky = tlc.nlml_g_ky(kinv, alpha, g_quad, g_logdet)
+    ls_, var_ = ls.clone().requires_grad_(True), var.clone().requires_grad_(True)
+    ky = gram.gram_matern32_reference(dist, ls_, var_, noise, 1e-6)
+    return torch.autograd.grad((g_ky * ky).sum(), (ls_, var_))
+
+
+@pytest.mark.parametrize("b,t", GRAM_SHAPES)
+def test_gram_grad_kernel_matches_autograd_of_the_chain(cuda_device, b, t):
+    """float64 within GRAD_TOL of autograd of the chain, and float32 within
+    GRAD_TOL of float64 on the same inputs, each a share of the sum of the
+    terms' absolute values; the terms rounded to the next precision below
+    (GRAD_CONTROL) must miss each limit."""
+    from bayesian_ensembling_tpu_torch.ops import gram
+
+    args = _gram_inputs(b, t, torch.float64, cuda_device)
+    dist, ls, var, noise, kinv, alpha, g_quad, g_logdet = args
+    grad_args = (kinv, alpha, g_quad, g_logdet, dist, ls, var)
+    reset_launch_counts()
+    got = gram.gram_matern32_grad(*grad_args)
+    assert launch_counts()["gram_matern32_grad"] == 1
+    scale = _term_scale(*grad_args)
+    want = _chain_grads(*args)
+    assert _gap(got, want, scale) < GRAD_TOL[torch.float64]
+    control = _terms_rounded_to(GRAD_CONTROL[torch.float64], *grad_args)
+    assert _gap(control, want, scale) > GRAD_TOL[torch.float64]
+    del kinv, args, grad_args, want, control
+    a32 = [a.to(torch.float32) for a in _gram_inputs(b, t, torch.float64, cuda_device)]
+    d32, l32, v32, _, k32, al32, gq32, gl32 = a32
+    grad_args = (k32, al32, gq32, gl32, d32, l32, v32)
+    got32 = gram.gram_matern32_grad(*grad_args)
+    want64 = gram.gram_matern32_grad(*(a.double() for a in grad_args))
+    control = _terms_rounded_to(GRAD_CONTROL[torch.float32], *grad_args)
+    torch.cuda.synchronize()
+    assert all(g.dtype == torch.float32 for g in got32)
+    assert _gap(got32, want64, scale) < GRAD_TOL[torch.float32]
+    assert _gap(control, want64, scale) > GRAD_TOL[torch.float32]
+
+
+@pytest.mark.parametrize("b,t", GRAM_SHAPES)
+def test_gram_kernels_give_the_same_bits_twice_and_in_any_batch(cuda_device, b, t):
+    """Two launches of each kernel give the same bits, and a matrix's
+    gradient does not depend on the batch it is in (the ranges depend on T
+    alone)."""
+    from bayesian_ensembling_tpu_torch.ops import gram
+
+    dist, ls, var, noise, kinv, alpha, g_quad, g_logdet = _gram_inputs(
+        b, t, torch.float32, cuda_device)
+    grad_args = (kinv, alpha, g_quad, g_logdet, dist, ls, var)
+    first = gram.gram_matern32_grad(*grad_args)
+    again = gram.gram_matern32_grad(*grad_args)
+    part = gram.gram_matern32_grad(*(a[3:b // 2] for a in grad_args))
+    ky = gram.gram_matern32(dist, ls, var, noise, 1e-6)
+    ky2 = gram.gram_matern32(dist, ls, var, noise, 1e-6)
+    torch.cuda.synchronize()
+    assert torch.equal(ky, ky2)
+    for f, a, p in zip(first, again, part):
+        assert torch.equal(f, a) and torch.equal(f[3:b // 2], p)
+
+
+@pytest.mark.parametrize("b,t,dtype,route", [
+    (112, 165, torch.float32, "kernel"),  # the annual historical fit
+    (16, 165, torch.float64, "kernel"),  # run_scenario's batch in float64
+    (8, 250, torch.float32, "library"),  # past the kernels' cap: torch.linalg
+    (28, 1980, torch.float32, "blocked"),  # the monthly historical chunk
+])
+def test_nlml_terms_on_the_gram_kernels_match_the_chain(cuda_device, b, t, dtype, route):
+    """``ops/gram.matern32_nlml_terms`` on the card: the values equal the
+    chain's NLML bit for bit on every route; the gradients agree with
+    autograd of the chain within GRAD_TOL, a share of each matrix's sum
+    of |terms| of the route's own K^-1 and alpha, and that contraction with
+    its terms rounded to the next precision below misses the limit."""
+    from bayesian_ensembling_tpu_torch.ops import gram
+
+    dist, ls, var, noise, *_ = _gram_inputs(b, t, dtype, cuda_device)
+    y = torch.randn((b, t), generator=torch.Generator().manual_seed(1), dtype=dtype).to(cuda_device)
+    assert tlc.linalg_path(t, b=b, dtype=dtype) == route
+    out = []
+    for use_gram in (False, True):
+        reset_launch_counts()
+        ls_, var_ = ls.clone().requires_grad_(True), var.clone().requires_grad_(True)
+        if use_gram:
+            quad, logdet = gram.matern32_nlml_terms(dist, ls_, var_, noise, y, 1e-6, route)
+        else:
+            ky = gram.gram_matern32_reference(dist, ls_, var_, noise, 1e-6)
+            quad, logdet = (tlb.nlml_terms_blocked(ky, y) if route == "blocked"
+                            else tlc.nlml_terms(ky, y))
+        grads = torch.autograd.grad((0.5 * (quad + logdet)).sum(), (ls_, var_))
+        out.append((quad, logdet, *grads, launch_counts(), route_counts()))
+    (q0, l0, gl0, gv0, n0, r0), (q1, l1, gl1, gv1, n1, r1) = out
+    with torch.no_grad():  # the K^-1 and alpha the backward contracts
+        forward, kinv_of = tlb.nlml_route(route)
+        _, _, factor, alpha = forward(gram.gram_matern32_reference(dist, ls, var, noise, 1e-6), y)
+        half = torch.full_like(ls, 0.5)
+        grad_args = (kinv_of(factor), alpha, half, half, dist, ls, var)
+        scale = _term_scale(*grad_args)
+        control = _terms_rounded_to(GRAD_CONTROL[dtype], *grad_args)
+    torch.cuda.synchronize()
+    assert torch.equal(q0, q1) and torch.equal(l0, l1)
+    assert _gap((gl1, gv1), (gl0, gv0), scale) < GRAD_TOL[dtype]
+    assert _gap(control, (gl0, gv0), scale) > GRAD_TOL[dtype]
+    assert (n1["gram_matern32"], n1["gram_matern32_grad"]) == (1, 1)
+    assert (n0["gram_matern32"], n0["gram_matern32_grad"]) == (0, 0)
+    assert r0 == r1
+
+
+def test_gaussian_crps_in_place_equals_the_expression_on_the_card(cuda_device):
+    """``scoring.gaussian_crps`` (in place, two buffers) against the formula
+    as one expression, at a slice of the gridded tail's (M, C, R_obs, T)."""
+    from bayesian_ensembling_tpu_torch.ops import scoring
+
+    gen = torch.Generator().manual_seed(0)
+    obs = torch.randn((1, 256, 200, 86), generator=gen).to(cuda_device)
+    mu = torch.randn((16, 256, 1, 86), generator=gen).to(cuda_device)
+    sigma = (0.1 + torch.rand((16, 256, 1, 86), generator=gen)).to(cuda_device)
+    z = (obs - mu) / sigma
+    cdf = 0.5 * (1.0 + torch.erf(z * scoring._INV_SQRT_2))
+    pdf = scoring._INV_SQRT_2PI * torch.exp(-0.5 * (z * z))
+    want = sigma * (z * (2.0 * cdf - 1.0) + 2.0 * pdf - scoring._INV_SQRT_PI)
+    assert torch.equal(scoring.gaussian_crps(obs, mu, sigma), want)

@@ -174,7 +174,8 @@ def test_imports_without_jax():
         " or m.startswith('bayesian_ensembling_tpu.')]\n"
         "assert not bad, bad\n"
         "assert bt.launch_counts() == {'dba_update': 0, 'dba_update_split': 0, 'chol_solve': 0,"
-        " 'tri_inv': 0, 'chol': 0, 'dtw_cost': 0, 'solve_vec': 0}\n"
+        " 'tri_inv': 0, 'chol': 0, 'dtw_cost': 0, 'solve_vec': 0, 'gram_matern32': 0,"
+        " 'gram_matern32_grad': 0}\n"
         "assert bt.route_counts() == {'kernel': 0, 'blocked': 0, 'library': 0}\n"
     )
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

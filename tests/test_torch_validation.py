@@ -335,7 +335,8 @@ def test_chip_smoke_validation_gates():
     assert degc == pytest.approx(2e-3) and nll == pytest.approx(4e-3)
     assert cs.col_rel_gap(got, want) == pytest.approx(4e-3 / 0.5)  # nll_mmm's largest is 0.5
     assert cs.pmt_launches("loglik") == {"dba_update": 0, "dba_update_split": 0, "chol_solve": 0,
-                                          "tri_inv": 0, "chol": 1, "dtw_cost": 0, "solve_vec": 2}
+                                          "tri_inv": 0, "chol": 1, "dtw_cost": 0, "solve_vec": 2,
+                                          "gram_matern32": 0, "gram_matern32_grad": 0}
     assert cs.pmt_launches("crps", n_folds=16)["chol"] == 16
     fits = cs.fold_fit_launches(16, 500)
     assert (fits["dba_update"], fits["chol_solve"], fits["tri_inv"], fits["chol"],

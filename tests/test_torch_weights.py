@@ -169,3 +169,49 @@ def test_refined_multi_scenario_f64_defaults_to_the_card():
     params = convert.gp_params_from_jax(np.zeros(6), np.zeros(6), "cpu", torch.float64)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tstep.refined_multi_scenario_f64(hb, hm, sb, sm, obs, np.ones((2, 3)), params, params)
+
+
+def _crps_expression(obs, mu, sigma):
+    """The closed-form CRPS as one expression, the form ``scoring.gaussian_crps``
+    computes in place."""
+    z = (obs - mu) / sigma
+    cdf = 0.5 * (1.0 + torch.erf(z * tscoring._INV_SQRT_2))
+    pdf = tscoring._INV_SQRT_2PI * torch.exp(-0.5 * (z * z))
+    return sigma * (z * (2.0 * cdf - 1.0) + 2.0 * pdf - tscoring._INV_SQRT_PI)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", [(), (40, 9), (3, 5, 40, 9)])
+def test_gaussian_crps_in_place_equals_the_expression(dtype, shape):
+    gen = torch.Generator().manual_seed(len(shape))
+    obs = torch.randn(shape, generator=gen, dtype=dtype)
+    mu = torch.randn(shape[:-2] + (1,) + shape[-1:] if shape else (), generator=gen, dtype=dtype)
+    sigma = 0.1 + torch.rand(mu.shape, generator=gen, dtype=dtype)
+    assert torch.equal(tscoring.gaussian_crps(obs, mu, sigma), _crps_expression(obs, mu, sigma))
+
+
+@pytest.mark.parametrize("which", ["obs", "mu", "sigma"])
+def test_gaussian_crps_refuses_inputs_that_require_grad(which):
+    """In place, the CRPS has no gradient: an input that requires grad
+    raises, and under ``torch.no_grad()`` the same call gives the value."""
+    gen = torch.Generator().manual_seed(2)
+    args = dict(obs=torch.randn((5, 9), generator=gen, dtype=torch.float64),
+                mu=torch.randn((1, 9), generator=gen, dtype=torch.float64),
+                sigma=0.1 + torch.rand((1, 9), generator=gen, dtype=torch.float64))
+    args[which].requires_grad_(True)
+    with pytest.raises(ValueError, match="no gradient"):
+        tscoring.gaussian_crps(**args)
+    with torch.no_grad():
+        got = tscoring.gaussian_crps(**args)
+    assert torch.equal(got, _crps_expression(*(a.detach() for a in args.values())))
+
+
+def test_gridded_crps_in_place_equals_the_expression_under_vmap():
+    """The gridded tail maps ``mean_gaussian_crps`` over cells with vmap."""
+    gen = torch.Generator().manual_seed(1)
+    mean, sd = torch.randn((4, 6, 11), generator=gen), 0.1 + torch.rand((4, 6, 11), generator=gen)
+    obs = torch.randn((6, 30, 11), generator=gen)
+    cells = torch.func.vmap(tscoring.mean_gaussian_crps, in_dims=(1, 1, 0), out_dims=1)
+    want = torch.func.vmap(lambda m, s, o: torch.mean(_crps_expression(o, m[:, None], s[:, None]),
+                                                      dim=-2), in_dims=(1, 1, 0), out_dims=1)
+    assert torch.equal(cells(mean, sd, obs), want(mean, sd, obs))
