@@ -6,18 +6,26 @@
 For each seed: the pool entry a run with every entry finished would compare
 (``run._sampled``), its answers from the plain reference in float64 (the
 comparison's), from the control (the same reference put in the program's
-place and computed one precision below the configuration's: float32 with
-TF32 on, since the configuration states float32 with TF32 off), and with
-``--program 1`` from one step of the port as the window runs it.  Prints,
-for each number a run compares, the control's reading and the program's,
-one JSON line a seed, and last the largest program reading and the
-smallest control reading over the seeds.  A reading above the cell's limit
-is a run that comes out not correct: the control has to.  With ``--fault``
-the program's step also runs once with that fault of ``portbench/faults.py``
-planted (side ``fault``): a fault the cell catches reads over a limit.  Each side
-also gives, for each output and statistic, the readings of its rows (the
-leading axis) alone: all of them where there are 64 rows or fewer, else
-their quantiles ``ROW_QUANTILES``.  Runs on the card.
+place and computed one precision below the configuration's, ``CONTROL``),
+and with ``--program 1`` from one step of the port as the window runs it.
+Prints, for each number a run compares, the control's reading and the
+program's, one JSON line a seed, and last the largest program reading and
+the smallest control reading over the seeds.  A reading above the cell's
+limit is a run that comes out not correct: the control has to.  With
+``--fault`` the program's step also runs once with that fault of
+``portbench/faults.py`` planted (side ``fault``): a fault the cell catches
+reads over a limit.  Each side also gives, for each output and statistic,
+the readings of its rows (the leading axis) alone: all of them where there
+are 64 rows or fewer, else their quantiles ``ROW_QUANTILES``.  Runs on the
+card.
+
+The ladder of the control's precision, by the configuration's dtype:
+
+* float32 (which every cell runs with TF32 off): the reference in float32
+  with TF32 on, on the pool entry as the cell draws it;
+* float64: the reference in float32 with TF32 off, on the pool entry's
+  floats rounded once to float32 (TF32 does not touch float64: the
+  float64 reference with TF32 on is the reference itself).
 """
 
 from __future__ import annotations
@@ -34,9 +42,11 @@ import numpy as np
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-from portbench import run  # noqa: E402
+from portbench import faults, run  # noqa: E402
 
 
+# The control of each configuration dtype: (the dtype it computes in, TF32 on).
+CONTROL = {"float32": ("float32", True), "float64": ("float32", False)}
 QUANTILES = (0.1, 0.25, 0.5, 0.9, 0.99, 1.0)
 ROW_QUANTILES = (0.5, 0.9, 0.99, 1.0)
 
@@ -88,8 +98,10 @@ def readings(cell, seed, device, program=False, witness=False, fault=None):
     with tf32(torch, False):
         want = reference(x64, config, profile, device, torch.float64)
     out["reference_s"] = time.perf_counter() - t0
-    with tf32(torch, True):
-        answers["control"] = reference(x, config, profile, device, getattr(torch, config["dtype"]))
+    below, tf32_on = CONTROL[config["dtype"]]
+    x_below = {key: a.astype(below) if a.dtype != bool else a for key, a in x.items()}
+    with tf32(torch, tf32_on):
+        answers["control"] = reference(x_below, config, profile, device, getattr(torch, below))
     if program:
         import bayesian_ensembling_tpu_torch as bt
 
@@ -97,8 +109,6 @@ def readings(cell, seed, device, program=False, witness=False, fault=None):
             t = entry.tensors(x, getattr(torch, config["dtype"]), device)
             answers["program"] = run._host(entry.step(bt, t, config, profile))
             if fault:
-                from portbench import faults
-
                 with faults.planted(fault, config):
                     answers["fault"] = run._host(entry.step(bt, t, config, profile))
             if witness:
@@ -123,7 +133,7 @@ def main(argv=None) -> int:
     parser.add_argument("--program", type=int, choices=(0, 1), default=0)
     parser.add_argument("--witness", type=int, choices=(0, 1), default=0,
                         help="with --program 1, also the port in float64")
-    parser.add_argument("--fault", default=None,
+    parser.add_argument("--fault", default=None, choices=sorted(faults.FAULTS),
                         help="with --program 1, also the port with this fault planted")
     args = parser.parse_args(argv)
     import torch

@@ -8,11 +8,14 @@ from __future__ import annotations
 
 import numpy as np
 
-from portbench.entries import fit_kwargs
+from portbench.entries import GP_FIT_SITE, fit_kwargs
 
 OUTPUTS = ("bary_mean", "bary_std", "weights")
 TINY = dict(scenarios=2, hist_models=3, ssp_models=[3, 2], models=3, realisations=4,
             min_realisations=3, t_hist=26, t_ssp=14, obs_members=5, hist_chunk=2)
+# The fit, and the tail as the campaign binds it by name (faults.py).
+FIT_SITE = GP_FIT_SITE
+TAIL_SITE = ("bayesian_ensembling_tpu_torch.parallel.campaign", "multi_scenario_tail")
 
 
 class _Collection:

@@ -3,11 +3,14 @@ then per cell the CRPS weights and the W2 barycentre."""
 
 from __future__ import annotations
 
-from portbench.entries import as_tensors, fit_kwargs
+from portbench.entries import GP_FIT_SITE, as_tensors, fit_kwargs
 
 OUTPUTS = ("bary_mean", "bary_std", "weights")
 _INPUTS = ("block", "obs", "mask")
 TINY = dict(models=3, lat=2, lon=2, realisations=4, t=11, obs_members=5)
+# Where faults.py plants: the fit, and the tail.
+FIT_SITE = GP_FIT_SITE
+TAIL_SITE = ("bayesian_ensembling_tpu_torch.parallel.gridded", "gridded_tail")
 
 
 def tensors(inputs, dtype, device):

@@ -4,12 +4,15 @@ barycentre a scenario."""
 
 from __future__ import annotations
 
-from portbench.entries import as_tensors, fit_kwargs
+from portbench.entries import GP_FIT_SITE, as_tensors, fit_kwargs
 
 OUTPUTS = ("bary_mean", "bary_std", "weights")
 _INPUTS = ("hist_blocks", "hist_masks", "ssp_blocks", "ssp_masks", "obs", "model_masks")
 TINY = dict(scenarios=2, models=3, min_real_models=2, realisations=5, t_hist=14, t_ssp=9,
             obs_members=6)
+# Where faults.py plants: the fit, and the tail.
+FIT_SITE = GP_FIT_SITE
+TAIL_SITE = ("bayesian_ensembling_tpu_torch.parallel.step", "multi_scenario_tail")
 
 
 def tensors(inputs, dtype, device):

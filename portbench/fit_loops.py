@@ -1,5 +1,5 @@
 """The port's optimiser loops of a traced step, for the readers that split the
-fit's time by its loops' attributes (``fit.library_ms``, ``fit.blocked_ms``,
+fit's time by its loops' attributes (``fit.blocked_ms``,
 ``fit.fine_roofline``).
 
 Step (a) of ``program_spans.py`` (the port's tracer on, no profiler) gives

@@ -21,7 +21,7 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent.parent
 sys.path.insert(0, str(ROOT))
 
-from portbench import faults, run, work  # noqa: E402
+from portbench import faults, fit_loops, run, work  # noqa: E402
 from portbench.entries import dedup_campaign as entry  # noqa: E402
 from portbench.generators import monthly  # noqa: E402
 from portbench.traffic import generate  # noqa: E402
@@ -198,47 +198,28 @@ def test_a_fit_fault_is_not_correct(fault):
         assert not run_tiny(cell)["correct"]
 
 
-def test_half_of_the_models_left_out_is_not_correct(monkeypatch):
-    """Planted where the campaign calls its tail: ``model_masks`` (S, M), the
-    eighth argument, keeps its first half of the models."""
-    from bayesian_ensembling_tpu_torch.parallel import campaign
-
-    tail = campaign.multi_scenario_tail
-
-    def half(*args, **kwargs):
-        args = list(args)
-        keep = torch.ones_like(args[7])
-        keep[:, keep.shape[1] // 2:] = 0.0
-        args[7] = args[7] * keep
-        return tail(*args, **kwargs)
-
-    monkeypatch.setattr(campaign, "multi_scenario_tail", half)
-    assert not run_tiny(tiny_run_cell())["correct"]
-
-
-@pytest.mark.parametrize("number", sorted(run.Cell.named(CELL).workload["checks"]))
-def test_one_answer_altered_where_it_is_produced_is_not_correct(number, monkeypatch):
-    """The output a number compares, altered by twice its limit where the
-    campaign's tail produces it: at one point for a widest gap, everywhere
-    for the other statistics."""
+def test_half_of_the_models_left_out_is_not_correct():
+    """Planted where the campaign calls its tail, ``campaign.multi_scenario_tail``
+    (the entry's ``TAIL_SITE``): ``model_masks`` (S, M), the eighth argument,
+    keeps its first half of the models."""
     from bayesian_ensembling_tpu_torch.parallel import campaign
 
     cell = tiny_run_cell()
+    assert faults.site(cell.config, "tail") == (campaign, "multi_scenario_tail")
+    with faults.planted("half_models_left_out", cell.config):
+        assert not run_tiny(cell)["correct"]
+
+
+@pytest.mark.parametrize("number", sorted(run.Cell.named(CELL).workload["checks"]))
+def test_one_answer_altered_where_it_is_produced_is_not_correct(number):
+    """The output a number compares, altered by twice its limit where the
+    campaign's tail produces it: at one point for a widest gap, everywhere
+    for the other statistics."""
+    cell = tiny_run_cell()
     spec = cell.workload["checks"][number]
-    j = entry.OUTPUTS.index(spec["output"])
-    tail = campaign.multi_scenario_tail
-
-    def altered(*args, **kwargs):
-        out = list(tail(*args, **kwargs))
-        out[j] = out[j].clone()
-        if spec["statistic"] == "max":
-            out[j].view(-1)[0] += 2.0 * spec["limit"]
-        else:
-            out[j] += 2.0 * spec["limit"]
-        return tuple(out)
-
-    monkeypatch.setattr(campaign, "multi_scenario_tail", altered)
-    result = run_tiny(cell)
+    with faults.answer_altered(cell.config, spec["output"], 2.0 * spec["limit"],
+                               everywhere=spec["statistic"] != "max"):
+        result = run_tiny(cell)
     assert not result["correct"]
     assert result["checks"][number]["value"] > spec["limit"]
 
@@ -271,16 +252,16 @@ def reader_ctx(spans):
 
 def test_the_route_readers_split_the_loops_of_the_step():
     ctx = reader_ctx(campaign_spans())
-    assert run.read_metric("fit.library_ms", ctx) == pytest.approx(3500.0)
+    assert fit_loops.route_ms(ctx, "library") == pytest.approx(3500.0)
     assert run.read_metric("fit.blocked_ms", ctx) == pytest.approx(1200.0)
     kernel_only = [s for s in campaign_spans() if s.attrs.get("route") in (None, "kernel")]
-    assert run.read_metric("fit.library_ms", reader_ctx(kernel_only)) == 0.0
+    assert run.read_metric("fit.blocked_ms", reader_ctx(kernel_only)) == 0.0
 
 
 def test_the_fine_roofline_is_the_full_t_work_over_the_full_t_loops():
     cell = run.Cell.named(CELL)
     ops = 100 * (work.value_and_grad_ops(28, 1980) + work.value_and_grad_ops(65, 1032))
-    want = 100.0 * ops / work.FP32_FLOPS / 4.7
+    want = 100.0 * ops / work.FP32_FLOPS / 4.7  # a float32 cell
     got = run.read_metric("fit.fine_roofline", reader_ctx(campaign_spans()))
     assert cell.profile["fine_steps"] == 100 and got == pytest.approx(want)
     assert 0.0 < got < 100.0
@@ -288,7 +269,7 @@ def test_the_fine_roofline_is_the_full_t_work_over_the_full_t_loops():
     assert unrouted == pytest.approx(want)  # it reads T, not the route
 
 
-@pytest.mark.parametrize("metric", ["fit.library_ms", "fit.blocked_ms", "fit.fine_roofline"])
+@pytest.mark.parametrize("metric", ["fit.blocked_ms", "fit.fine_roofline"])
 def test_the_route_readers_find_nothing_where_there_is_nothing_to_read(metric):
     no_root = [s for s in campaign_spans() if s.name != "step"]
     on_cpu = [types.SimpleNamespace(**dict(vars(s), device_ms=None)) for s in campaign_spans()]

@@ -14,6 +14,8 @@ answer is made (``portbench/faults.py``):
   number that compares it (at one point for a widest gap, at every point
   for a median gap).
 
+Each fault is planted at the sites the cell's entry names (``FIT_SITE``,
+``TAIL_SITE``): in the monthly cell the tail as the campaign binds it.
 The cells run on one card, so no exchange between chips can be left out.
 Sound runs at the same size come out correct.
 """
@@ -37,6 +39,13 @@ CELLS = {
                                       t_hist=14, t_ssp=9, obs_members=6), dict(n_optim_nits=60)),
     "gridded-5deg.fast": (dict(models=4, lat=2, lon=2, realisations=4, t=11, obs_members=5),
                           dict(n_optim_nits=12)),
+    # Seven scenarios, so that a check ranked over scenarios has its rows;
+    # two historical chunks (5 models in chunks of 3).
+    "monthly-campaign.fast-monthly": (
+        dict(scenarios=7, hist_models=5, ssp_models=[4, 3, 3, 2, 2, 2, 2], models=4,
+             realisations=4, min_realisations=3, t_hist=26, t_ssp=14, obs_members=6,
+             hist_chunk=3),
+        dict(n_optim_nits=60, time_stride=3, fine_steps=20, dba_iterations=3)),
 }
 SEED = 2 ** 31 + 101
 
@@ -91,25 +100,26 @@ def _checks():
 
 
 @pytest.mark.parametrize("name, check", _checks(), ids=lambda v: v if isinstance(v, str) else v[0])
-def test_one_answer_altered_where_it_is_produced_is_not_correct(name, check, monkeypatch):
+def test_one_answer_altered_where_it_is_produced_is_not_correct(name, check):
     """The output a number compares, altered by twice its limit where the
     tail produces it: at one point for a widest gap, everywhere for a median."""
     number, spec = check
     cell = tiny_cell(name)
-    module, attr = faults.tail_of(cell.config)
-    tail = getattr(module, attr)
-    j = ("bary_mean", "bary_std", "weights").index(spec["output"])
-
-    def altered(*args, **kwargs):
-        out = list(tail(*args, **kwargs))
-        out[j] = out[j].clone()
-        if spec["statistic"] == "max":
-            out[j].view(-1)[0] += 2.0 * spec["limit"]
-        else:
-            out[j] += 2.0 * spec["limit"]
-        return tuple(out)
-
-    monkeypatch.setattr(module, attr, altered)
-    result = run_tiny(cell)
+    with faults.answer_altered(cell.config, spec["output"], 2.0 * spec["limit"],
+                               everywhere=spec["statistic"] != "max"):
+        result = run_tiny(cell)
     assert not result["correct"]
     assert result["checks"][number]["value"] > spec["limit"]
+
+
+@pytest.mark.parametrize("name", sorted(CELLS))
+def test_each_fault_is_planted_where_the_entry_names_it(name):
+    """The fault replaces the function the entry's step looks up, and puts it
+    back after."""
+    config = tiny_cell(name).config
+    for kind, fault in (("fit", "unchanged_fit"), ("tail", "half_models_left_out")):
+        module, attr = faults.site(config, kind)
+        original = getattr(module, attr)
+        with faults.planted(fault, config):
+            assert getattr(module, attr) is not original
+        assert getattr(module, attr) is original

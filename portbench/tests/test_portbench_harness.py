@@ -150,6 +150,68 @@ def test_step_operations_match_hand_counts(b, t, d):
         dba + b * 4 * t * d + distances + 7 * (grad + value) + posterior)
 
 
+def svgp_step_by_hand(p, n, d, g):
+    """One SVGP step's operations, the terms of ``work.svgp_step_terms``
+    collected by hand by their powers of p, n, d and the group count g."""
+    return (8 * p ** 3 / 3 + 6 * p * p * n + 4 * p * n * d + 25 * g * p * n + 18 * p * n
+            + 4 * p * p * d + 27 * g * p * p + 9.5 * p * p + 2 * n * d + 24 * p * d + 17 * n
+            + 39.5 * p + 3 * g * p + 44 * g)
+
+
+def svgp_predict_by_hand(p, m, d, g):
+    """The SVGP's marginals at m points, collected by hand likewise."""
+    return (p ** 3 / 3 + 2 * p * p * m + 7 * p * m + 2 * p * m * d + 13 * g * p * m
+            + 2 * p * p * d + 13 * g * p * p + 6 * p * d + 2 * m * d + 4 * m + 6 * p + 10 * g)
+
+
+def test_the_svgp_counts_match_hand_counts_at_a_tiny_shape():
+    """(p, n, N, d) = (3, 2, 4, 5): groups of widths 2, 1, 1, 1, each term
+    worked out by hand."""
+    widths = work.svgp_widths(5)
+    assert widths == (2, 1, 1, 1)
+    assert work.svgp_step_ops(1, 3, 2, widths) == 2990 == svgp_step_by_hand(3, 2, 5, 4)
+    assert work.svgp_step_ops(7, 3, 2, widths) == 7 * 2990
+    assert work.svgp_predict_ops(1, 3, 4, widths) == 1671 == svgp_predict_by_hand(3, 4, 5, 4)
+    # 3 pairs of 5 * 16, their 6 row-sum additions and 3 comparisons, then
+    # 2 classic updates of 3 pairs of 5 * 16.
+    assert work.medoid_dba_ops(1, 3, 4, 2) == 240 + 6 + 3 + 480
+    assert work.additive_matern32_ops(3, 2, (2, 1)) == (24 + 20 + 78) + (12 + 10 + 78)
+
+
+def test_the_svgp_counts_match_hand_counts_at_the_5_degree_grid():
+    """(b, P, n, N, D) = (16, 400, 500, 222,912, 33): 16 models of 86 years
+    x 2,592 cells, 29 realisations; the DBA over the 16 x 2,592 cells."""
+    b, p, n, big_n, d = 16, 400, 500, 86 * 2592, 33
+    widths = work.svgp_widths(d)
+    assert widths == (2, 1, 1, 29) and big_n == 222912
+    step = work.svgp_step_ops(b, p, n, widths)
+    assert step == pytest.approx(b * svgp_step_by_hand(p, n, d, 4), rel=1e-15)
+    assert step == pytest.approx(11855451882.666666, rel=1e-15)
+    terms = work.svgp_step_terms(b, p, n, widths)
+    assert sum(terms.values()) == step and all(v > 0 for v in terms.values())
+    # The reverse mode of each forward term is written out, not a multiple.
+    assert terms["cholesky_grad"] == b * (7 * p ** 3 / 3 + p * p)
+    assert terms["solve_grad"] == b * (p * p * n + p * (p + 1) * n)
+    predict = work.svgp_predict_ops(b, p, big_n, widths)
+    assert predict == pytest.approx(b * svgp_predict_by_hand(p, big_n, d, 4), rel=1e-15)
+    assert predict == pytest.approx(1320533421013.3335, rel=1e-15)
+    pairs = 16 * 2592 * 29 * 28 // 2
+    assert work.medoid_dba_ops(16 * 2592, 29, 86, 10) == (
+        pairs * 5 * 86 * 86 + 2 * pairs + 16 * 2592 * 29 + 10 * 5 * 16 * 2592 * 29 * 86 * 86)
+    assert work.medoid_dba_ops(16 * 2592, 29, 86, 10) == 1067444531712
+
+
+def test_the_peaks_are_the_configuration_dtype_s():
+    assert work.PEAK_FLOPS == {"float32": 67e12, "float64": 67e12}
+    assert work.peak_flops({"dtype": "float64"}) == work.FP64_FLOPS
+    assert work.least_seconds(0.0, 67e12, "float64") == 1.0
+    assert work.least_seconds(3.35e12, 0.0, "float64") == 1.0
+    cell = run.Cell.named("gridded-5deg.fast")
+    ctx = run.Context(cell=cell, setup_s=1.0, step_s=0.5, peak_window_bytes=0)
+    ops = work.step_ops(cell.config, cell.profile)
+    assert run.read_metric("step_mfu", ctx) == 100.0 * ops / (0.5 * work.FP32_FLOPS)
+
+
 # What the harness counted and drew before the entries counted their own
 # batches and each generator had a file of its own: the pools of seed 7 (two
 # draws, each array's name, dtype, shape and bytes, SHA-256) and the counts.
@@ -197,12 +259,18 @@ def test_the_operation_counts_are_the_ones_counted_before(workload):
 
 def stub_context(cell, traced):
     """A context of ``cell`` as a run fills it, with a stub trace: kernels of
-    both rooflines on the card, the port's spans and one optimiser loop."""
+    both rooflines on the card, the port's spans and one optimiser loop,
+    which carries the attributes a real loop does (the batch ``B`` and full
+    length ``T`` of the cell's first collection, the ``blocked`` route)."""
     import types
 
     import numpy as np
 
     from portbench.trace import Trace
+
+    batches = work.collections(cell.config) if hasattr(work.entry_of(cell.config),
+                                                       "collections") else []
+    loop_attrs = dict(B=batches[0][0], T=batches[0][1], route="blocked") if batches else {}
 
     ctx = run.Context(cell=cell, setup_s=9.5, step_s=1.5, peak_window_bytes=3 * 2 ** 30)
     if traced:
@@ -213,10 +281,12 @@ def stub_context(cell, traced):
         ctx.trace = ctx.program_trace = Trace(
             window_s=2.0, device=device, host_names=[h[0] for h in host],
             host_start=np.array([h[1] for h in host]), host_end=np.array([h[2] for h in host]))
-        ctx.program_spans = [types.SimpleNamespace(name=name, id=i, root=1, device_ms=ms)
-                             for i, (name, ms) in enumerate(
-                                 [("step", 1900.0), ("dba", 5.0), ("fit", 1500.0),
-                                  ("fit.loop", 1400.0), ("posterior", 3.0), ("tail", 2.0)], 1)]
+        ctx.program_spans = [
+            types.SimpleNamespace(name=name, id=i, root=1, device_ms=ms,
+                                  attrs=loop_attrs if name == "fit.loop" else {})
+            for i, (name, ms) in enumerate(
+                [("step", 1900.0), ("dba", 5.0), ("fit", 1500.0), ("fit.loop", 1400.0),
+                 ("posterior", 3.0), ("tail", 2.0)], 1)]
         ctx.fit_steps = {"adam": 2, "bfgs": 0, "lbfgs": 0}
     return ctx
 
